@@ -1,0 +1,437 @@
+#!/usr/bin/env python3
+"""On-card smoke run of the PyTorch/CUDA port (ssad_tpu_torch).
+
+Run from the repository root on a machine with one CUDA card:
+
+    python3 chip_smoke.py
+
+It imports nothing of JAX or of the JAX package.  Phases (each raises on
+failure; the script exits 0 only when all pass):
+
+1. Print the card's name and power limit (nvidia-smi), build every CUDA
+   kernel of the serving path from ssad_tpu_torch/csrc (one nvcc per
+   source, started together).
+2. Hold each kernel against its plain PyTorch version on the card (TF32
+   off) at the serving path's shapes, max |Δ| ≤ 1e-5, and time kernel,
+   plain version and a library yardstick beside the card's bound.
+3. Drive the image-mode serving path at full width: PeraNet/ResNet-18,
+   256×256×3 inputs, 512-d embeddings, bf16 compute, seeded random
+   weights in the reference layout; a 1000-row bank embedded from
+   seeded synthetic images; ``cli export`` (batch 8, 70/30 fit → 700-row
+   bank); the ``serve`` loader (ServedScorer on cuda + BatchingScorer)
+   behind AnomalyHTTPServer on port 0; 32 POST /score requests from 4
+   threads, npy and PNG bodies mixed.  Launch counts are reset just
+   before and read just after.  Then: HTTP scores equal the direct
+   scorer's, scores equal the plain-k-NN path's to 1e-5, the kernel ran,
+   and the f32 model (cuDNN TF32 off) on the card matches the CPU port.
+4. Print one JSON line of kernel records, the card line again, and the
+   final {"ok": true, "device": ...} line.
+"""
+
+from __future__ import annotations
+
+import http.client
+import io
+import json
+import shutil
+import subprocess
+import sys
+import tempfile
+import threading
+import time
+from pathlib import Path
+
+import numpy as np
+
+ROOT = Path(__file__).resolve().parent
+
+#: NVIDIA H100 SXM data-sheet peaks (dense, at the 700 W limit)
+HBM_BYTES_PER_S = 3.35e12
+FP32_FLOP_PER_S = 67e12
+KNN_TOL = 1e-5
+F32_MODEL_TOL = 1e-4
+N_REQUESTS, N_THREADS = 32, 4
+IMSIZE, BATCH, BANK_ROWS = 256, 8, 1000
+
+
+def fail(msg: str) -> None:
+    print(f"chip_smoke: FAILED: {msg}", file=sys.stderr, flush=True)
+    sys.exit(1)
+
+
+def card_line() -> str:
+    proc = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True,
+    )
+    return proc.stdout.strip().splitlines()[0]
+
+
+def reference_state_dict(seed: int = 0) -> dict:
+    """Random reference-layout PeraNet weights, He-scaled so eval-mode
+    activations stay finite through 18 conv layers, with non-trivial BN
+    running statistics."""
+    import torch
+
+    rng = np.random.default_rng(seed)
+    sd = {}
+
+    def t(a):
+        return torch.tensor(np.asarray(a, np.float32))
+
+    def add_bn(prefix, c):
+        sd[f"{prefix}.weight"] = t(rng.uniform(0.8, 1.2, c))
+        sd[f"{prefix}.bias"] = t(rng.normal(0, 0.05, c))
+        sd[f"{prefix}.running_mean"] = t(rng.normal(0, 0.1, c))
+        sd[f"{prefix}.running_var"] = t(rng.uniform(0.5, 2.0, c))
+        sd[f"{prefix}.num_batches_tracked"] = torch.tensor(0)
+
+    def add_conv(name, o, i, k):
+        sd[f"{name}.weight"] = t(rng.normal(0, (i * k * k) ** -0.5, (o, i, k, k)))
+
+    def add_linear(name, o, i, bias):
+        sd[f"{name}.weight"] = t(rng.normal(0, i**-0.5, (o, i)))
+        if bias:
+            sd[f"{name}.bias"] = t(rng.normal(0, 0.05, o))
+
+    pre = "feature_extractor"
+    add_conv(f"{pre}.conv1", 64, 3, 7)
+    add_bn(f"{pre}.bn1", 64)
+    chans = {1: (64, 64), 2: (64, 128), 3: (128, 256), 4: (256, 512)}
+    for stage, (cin, cout) in chans.items():
+        for block in range(2):
+            p = f"{pre}.layer{stage}.{block}"
+            i = cin if block == 0 else cout
+            add_conv(f"{p}.conv1", cout, i, 3)
+            add_bn(f"{p}.bn1", cout)
+            add_conv(f"{p}.conv2", cout, cout, 3)
+            add_bn(f"{p}.bn2", cout)
+            if stage > 1 and block == 0:
+                add_conv(f"{p}.downsample.0", cout, i, 1)
+                add_bn(f"{p}.downsample.1", cout)
+    add_linear("concatenator.0", 512, 896, bias=False)
+    add_bn("concatenator.1", 512)
+    for i in range(3):
+        add_linear(f"latent_space.{i}.0", 512, 512, bias=False)
+        add_bn(f"latent_space.{i}.1", 512)
+    add_linear("latent_space.3", 512, 512, bias=True)
+    add_bn("latent_space.4", 512)
+    add_linear("classifier", 4, 512, bias=True)
+    return sd
+
+
+def synthetic_images(rng: np.random.Generator, n: int) -> np.ndarray:
+    """(n, 256, 256, 3) float32 in [0,1]: a flat colour, a vertical
+    gradient and pixel noise, all seeded."""
+    base = rng.uniform(0.25, 0.75, (n, 1, 1, 3))
+    ramp = np.linspace(0.0, 1.0, IMSIZE)[None, :, None, None] * rng.uniform(0, 0.2, (n, 1, 1, 1))
+    noise = rng.uniform(0.0, 0.1, (n, IMSIZE, IMSIZE, 3))
+    return np.clip(base + ramp + noise, 0.0, 1.0).astype(np.float32)
+
+
+def cuda_ms(fn, iters: int = 200, warmup: int = 10) -> float:
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def knn_bound(n: int, m: int, d: int):
+    """(bound_ms, bound_by): inputs read once + output written once over
+    the HBM rate, vs the f32 dot products and norms over the FP32 rate."""
+    nbytes = 4 * (n * d + m * d + n)
+    flops = 2 * n * m * d + 2 * (n + m) * d
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / FP32_FLOP_PER_S
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def check_knn_kernel(device):
+    """Phase 2: kernel vs plain version at every listed shape."""
+    import torch
+
+    from ssad_tpu_torch.ops import knn
+
+    gen = torch.Generator(device=device).manual_seed(0)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=device)
+
+    cases = {}
+    for name, n, m, d, k in (
+        ("serve", 8, 700, 512, 3), ("fit", 300, 700, 512, 3), ("k1", 37, 1000, 512, 1),
+    ):
+        cases[name] = (randn(n, d), randn(m, d), k)
+    base = randn(600, 512)
+    cases["duplicates"] = (base[:16] + 1e-3 * randn(16, 512), torch.cat([base, base[:100]]), 3)
+    cases["small_bank"] = (randn(8, 512), randn(20, 512), 3)
+
+    records = {}
+    for name, (q, b, k) in cases.items():
+        out = knn.knn_cosine_scores_cuda(q, b, k=k)
+        torch.cuda.synchronize()
+        ref = knn.knn_cosine_scores_plain(q, b, k=k)
+        err = float(torch.max(torch.abs(out - ref)))
+        if not err <= KNN_TOL:
+            fail(f"knn kernel vs plain on {name} {tuple(q.shape)}x{tuple(b.shape)}: max|d|={err}")
+        qn, bn = knn.l2_normalize(q), knn.l2_normalize(b)
+        rec = {
+            "shape": [q.shape[0], b.shape[0], q.shape[1]], "k": k, "max_abs_err": err,
+            "ms": cuda_ms(lambda: knn.knn_cosine_scores_cuda(q, b, k=k)),
+            "plain_ms": cuda_ms(lambda: knn.knn_cosine_scores_plain(q, b, k=k)),
+            "library_ms": cuda_ms(lambda: torch.topk(qn @ bn.T, k, dim=1)),
+        }
+        rec["bound_ms"], rec["bound_by"] = knn_bound(q.shape[0], b.shape[0], q.shape[1])
+        records[name] = rec
+        print(f"knn {name}: {json.dumps(rec)}", flush=True)
+    return records
+
+
+def post(port: int, body: bytes) -> tuple:
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=120)
+    try:
+        t0 = time.perf_counter()
+        conn.request("POST", "/score", body=body,
+                     headers={"Content-Type": "application/octet-stream"})
+        resp = conn.getresponse()
+        data = resp.read()
+        ms = (time.perf_counter() - t0) * 1e3
+    finally:
+        conn.close()
+    if resp.status != 200:
+        raise RuntimeError(f"POST /score → {resp.status}: {data[:300]!r}")
+    return json.loads(data), ms
+
+
+def drive_serving_path(device, work: Path):
+    """Phase 3: the full-width serving path through the user entry points."""
+    import torch
+    from PIL import Image
+
+    from ssad_tpu_torch import cli
+    from ssad_tpu_torch.config import ModelConfig
+    from ssad_tpu_torch.data.mvtec import load_image
+    from ssad_tpu_torch.evaluation.inference import InferenceEngine
+    from ssad_tpu_torch.models.peranet import build_model
+    from ssad_tpu_torch.ops import image as im
+    from ssad_tpu_torch.ops import knn
+    from ssad_tpu_torch.serving.cli import _load_artifact_models
+    from ssad_tpu_torch.serving.server import AnomalyHTTPServer, coerce_image_array
+    from ssad_tpu_torch.utils.ref_checkpoint import save_reference_checkpoint
+
+    sd = reference_state_dict(0)
+    rng = np.random.default_rng(0)
+
+    # the checkpoint's 1000-row bank: eval-mode embeddings of seeded images
+    t0 = time.perf_counter()
+    model = build_model(ModelConfig())
+    model.load_state_dict(sd, strict=True)
+    engine = InferenceEngine(model, device)
+    rows = []
+    for _ in range(BANK_ROWS // 50):
+        x = torch.from_numpy(synthetic_images(rng, 50)).to(device)
+        rows.append(engine.predict_batch(im.normalize_imagenet(x))[1].float().cpu())
+    bank_rows = torch.cat(rows).numpy()
+    if bank_rows.shape != (BANK_ROWS, 512) or not np.isfinite(bank_rows).all():
+        fail(f"bank embeddings: shape {bank_rows.shape}, finite={np.isfinite(bank_rows).all()}")
+    models_dir = work / "models"
+    save_reference_checkpoint(models_dir / "bottle" / "best_model.ckpt", sd, bank_rows)
+    del engine, model
+    print(f"bank: {BANK_ROWS} rows embedded + checkpoint in {time.perf_counter() - t0:.2f} s",
+          flush=True)
+
+    req_imgs = synthetic_images(rng, N_REQUESTS)
+    bodies, expected_inputs = [], []
+    for i, img in enumerate(req_imgs):
+        buf = io.BytesIO()
+        if i % 2 == 0:
+            np.save(buf, img)
+            expected_inputs.append(coerce_image_array(img, (IMSIZE, IMSIZE)))
+        else:
+            Image.fromarray((img * 255).astype(np.uint8)).save(buf, "PNG")
+            expected_inputs.append(load_image(io.BytesIO(buf.getvalue()), (IMSIZE, IMSIZE)))
+        bodies.append(buf.getvalue())
+
+    # ---- the main path: counts to 0 just before, read just after ----------
+    knn.knn_cosine_scores_cuda.launches = 0
+    artifact = work / "bottle_image.ssadpt"
+    t0 = time.perf_counter()
+    rc = cli.main(["export", "--models-dir", str(models_dir), "--subject", "bottle",
+                   "--batch", str(BATCH), "--imsize", str(IMSIZE), "--out", str(artifact)])
+    if rc != 0:
+        fail(f"cli export returned {rc}")
+    export_s = time.perf_counter() - t0
+    models, warmup_s = _load_artifact_models([str(artifact)], 5.0, 256, device)
+    batcher, meta = models["bottle"]
+    server = AnomalyHTTPServer(models=models, port=0).start()
+    results, latencies, errors = [None] * N_REQUESTS, [None] * N_REQUESTS, []
+
+    def client(tid: int):
+        try:
+            for i in range(tid, N_REQUESTS, N_THREADS):
+                results[i], latencies[i] = post(server.port, bodies[i])
+        except Exception as e:  # reported by the main thread below
+            errors.append(repr(e))
+
+    try:
+        threads = [threading.Thread(target=client, args=(t,)) for t in range(N_THREADS)]
+        t0 = time.perf_counter()
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=300)
+        http_s = time.perf_counter() - t0
+        if any(t.is_alive() for t in threads):
+            fail("HTTP client threads did not finish")
+        batcher_stats = batcher.stats()
+    finally:
+        server.stop()
+    launches = knn.knn_cosine_scores_cuda.launches
+    # ---- end of the main path ---------------------------------------------
+    if errors:
+        fail(f"HTTP requests failed: {errors[:3]}")
+    print(f"main path: export {export_s:.2f} s, warmup {warmup_s:.2f} s, "
+          f"{N_REQUESTS} requests in {http_s:.3f} s, batches {batcher_stats['batches']}, "
+          f"knn launches {launches}", flush=True)
+    if launches < 1 + batcher_stats["batches"]:
+        fail(f"knn kernel launches {launches} < fit + {batcher_stats['batches']} batches")
+    if meta["model"]["compute_dtype"] != "bfloat16" or meta["batch"] != BATCH:
+        fail(f"artifact header {meta['model']}, batch {meta['batch']}")
+
+    scorer = batcher._fn
+    fit_rows = BANK_ROWS - round(0.3 * BANK_ROWS)  # the 70/30 split: 700
+    if tuple(scorer.bank.shape) != (fit_rows, 512):
+        fail(f"fitted bank {tuple(scorer.bank.shape)} != ({fit_rows}, 512)")
+    http_scores = np.array([r["score"] for r in results], np.float32)
+    http_labels = np.array([r["label"] for r in results])
+    direct_scores, direct_labels, direct_logits = scorer(np.stack(expected_inputs))
+    if direct_logits.shape != (N_REQUESTS, 4) or not np.isfinite(direct_logits).all():
+        fail(f"logits {direct_logits.shape} finite={np.isfinite(direct_logits).all()}")
+    http_vs_direct = float(np.max(np.abs(http_scores - direct_scores)))
+    if http_vs_direct > 1e-6 or not np.array_equal(http_labels, direct_labels):
+        fail(f"HTTP scores vs direct scorer: max|d|={http_vs_direct}")
+
+    x = torch.from_numpy(np.stack(expected_inputs)).to(device)
+    embs = torch.cat([
+        scorer.engine.predict_batch(im.normalize_imagenet(x[lo:lo + BATCH]))[1]
+        for lo in range(0, N_REQUESTS, BATCH)
+    ])
+    plain = knn.knn_cosine_scores_plain(embs, scorer.bank, k=scorer.k).cpu().numpy()
+    plain_vs_http = float(np.max(np.abs(plain - http_scores)))
+    if not plain_vs_http <= KNN_TOL:
+        fail(f"served scores vs plain k-NN path: max|d|={plain_vs_http}")
+
+    # served latency: the direct scorer on one full batch, host clock
+    x8 = np.stack(expected_inputs[:BATCH])
+    scorer(x8)
+    times = []
+    for _ in range(30):
+        t0 = time.perf_counter()
+        scorer(x8)
+        times.append((time.perf_counter() - t0) * 1e3)
+    lat = np.sort(np.array(latencies))
+    serving = {
+        "batch8_scorer_ms_mean": float(np.mean(times)),
+        "batch8_scorer_ms_p50": float(np.median(times)),
+        "http_p50_ms": float(np.percentile(lat, 50)),
+        "http_p95_ms": float(np.percentile(lat, 95)),
+        "http_latencies_ms_sorted": lat.tolist(),
+        "http_requests": N_REQUESTS, "http_threads": N_THREADS,
+        "http_wall_s": http_s, "batches": batcher_stats["batches"],
+        "mean_batch_occupancy": batcher_stats["mean_batch_occupancy"],
+        "export_s": export_s, "warmup_s": warmup_s,
+        "http_vs_direct_max_abs": http_vs_direct,
+        "http_vs_direct_bit_exact": bool(np.array_equal(http_scores, direct_scores)),
+        "served_vs_plain_knn_max_abs": plain_vs_http,
+        "threshold": meta["threshold"],
+        "anomalous": int(http_labels.sum()),
+    }
+
+    # the f32 model on the card (cuDNN TF32 off) vs the CPU port
+    two = req_imgs[:2]
+    outs = []
+    for dev in (device, torch.device("cpu")):
+        m32 = build_model(ModelConfig(compute_dtype="float32"))
+        m32.load_state_dict(sd, strict=True)
+        eng = InferenceEngine(m32, dev)
+        logits, emb = eng.predict_batch(im.normalize_imagenet(torch.from_numpy(two).to(dev)))
+        outs.append((logits.cpu().numpy(), emb.cpu().numpy()))
+    (card_logits, card_emb), (cpu_logits, cpu_emb) = outs
+    emb_err = float(np.max(np.abs(card_emb - cpu_emb)))
+    logit_err = float(np.max(np.abs(card_logits - cpu_logits)))
+    if not (emb_err <= F32_MODEL_TOL and logit_err <= F32_MODEL_TOL):
+        fail(f"f32 model cuda vs cpu: embedding {emb_err}, logits {logit_err}")
+    serving["f32_cuda_vs_cpu_embedding_max_abs"] = emb_err
+    serving["f32_cuda_vs_cpu_logits_max_abs"] = logit_err
+    print(f"serving: {json.dumps(serving)}", flush=True)
+    return launches
+
+
+def main() -> int:
+    try:
+        import torch
+    except ImportError as e:
+        fail(f"torch is not importable: {e}")
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is false: this script needs a CUDA card")
+    sys.path.insert(0, str(ROOT))
+    try:
+        import ssad_tpu_torch
+        from ssad_tpu_torch.ops import _cuda
+        from ssad_tpu_torch.utils.device import resolve_device
+    except ImportError as e:
+        fail(f"the port is not beside this script ({e}); run it from the repository root")
+    if Path(ssad_tpu_torch.__file__).resolve().parent != ROOT / "ssad_tpu_torch":
+        fail(f"ssad_tpu_torch was imported from {ssad_tpu_torch.__file__}, not {ROOT}")
+
+    card = card_line()
+    print(f"card: {card}", flush=True)
+    print(f"python {sys.version.split()[0]}, torch {torch.__version__}, cuda {torch.version.cuda}",
+          flush=True)
+    device = resolve_device(None)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+    t0 = time.perf_counter()
+    libs = _cuda.build(["knn"])
+    print(f"build: {sorted(libs)} in {time.perf_counter() - t0:.2f} s", flush=True)
+    for name, log in _cuda.build_logs.items():
+        for line in log.splitlines():
+            if "registers" in line or "spill" in line:
+                print(f"ptxas {name}: {line.strip()}", flush=True)
+
+    records = check_knn_kernel(device)
+    work = Path(tempfile.mkdtemp(prefix=".chip_smoke_", dir=ROOT))
+    try:
+        launches = drive_serving_path(device, work)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+    serve = records["serve"]
+    kernel = {
+        "name": "knn_cosine_scores", "route": "cuda",
+        "source": "ssad_tpu_torch/csrc/knn.cu", "replaces": "ssad_tpu/ops/knn.py:42",
+        "launches": launches,
+        "max_abs_err": max(r["max_abs_err"] for r in records.values()),
+        "ms": serve["ms"], "plain_ms": serve["plain_ms"], "bound_ms": serve["bound_ms"],
+        "bound_by": serve["bound_by"], "library_ms": serve["library_ms"],
+        "shape": serve["shape"], "k": serve["k"],
+    }
+    print(json.dumps({"kernels": [kernel]}), flush=True)
+    print(card_line(), flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count(),
+    }}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,146 @@
+#!/usr/bin/env python3
+"""Device-time breakdown of the port's image-mode serving path on a card.
+
+Run from the repository root on a machine with one CUDA card:
+
+    python3 scripts/torch_serving_profile.py
+
+Builds the full-width scorer of chip_smoke.py (PeraNet/ResNet-18, 256²,
+bf16 backbone, seeded weights, a 700-row f32 bank, k = 3, batch 8) and
+traces it with torch.profiler:
+
+* ``knn``: device time per call of the CUDA k-NN kernel (its two kernels
+  summed) at the serving shape (8 × 700 × 512) and the fit shape
+  (300 × 700 × 512), beside the host-clock time per call;
+* ``served_batch``: one batch-8 ``ServedScorer`` call — wall time, device
+  busy time, idle share, and device time by group (k-NN kernel, copies,
+  the rest = the model) with the top kernels by time.
+
+Prints one JSON line per section and the card's name and power limit.
+Imports nothing of JAX or of the JAX package.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import json
+import sys
+import time
+from pathlib import Path
+
+import numpy as np
+
+ROOT = Path(__file__).resolve().parent.parent
+sys.path.insert(0, str(ROOT))
+
+import chip_smoke  # noqa: E402  (repo root on sys.path first)
+
+
+def device_events(prof):
+    """(name, start_us, end_us) of every device-side event in a trace."""
+    import torch
+
+    out = []
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            out.append((e.name, e.time_range.start, e.time_range.end))
+    return out
+
+
+def busy_us(events) -> float:
+    """Length of the union of the events' intervals."""
+    total, cur_start, cur_end = 0.0, None, None
+    for _, s, e in sorted(events, key=lambda t: t[1]):
+        if cur_end is None or s > cur_end:
+            if cur_end is not None:
+                total += cur_end - cur_start
+            cur_start, cur_end = s, e
+        else:
+            cur_end = max(cur_end, e)
+    if cur_end is not None:
+        total += cur_end - cur_start
+    return total
+
+
+def group(name: str) -> str:
+    if "knn_" in name:
+        return "knn_kernel"
+    if "Memcpy" in name or "memcpy" in name:
+        return "copies"
+    return "model"
+
+
+def profile(fn, calls: int):
+    """Trace ``calls`` calls of fn after a warmup; returns (events, wall_ms
+    per call)."""
+    import torch
+    from torch.profiler import ProfilerActivity
+    from torch.profiler import profile as tprofile
+
+    for _ in range(5):
+        fn()
+    torch.cuda.synchronize()
+    with tprofile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3 / calls
+    return device_events(prof), wall_ms
+
+
+def main() -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        print("torch_serving_profile: needs a CUDA card", file=sys.stderr)
+        return 1
+    from ssad_tpu_torch.config import ModelConfig
+    from ssad_tpu_torch.ops import knn
+    from ssad_tpu_torch.serving.export import ServedScorer
+
+    device = torch.device("cuda")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    print(f"card: {chip_smoke.card_line()}", flush=True)
+
+    gen = torch.Generator(device=device).manual_seed(0)
+    for label, n in (("serve", 8), ("fit", 300)):
+        q = torch.randn((n, 512), generator=gen, device=device)
+        b = torch.randn((700, 512), generator=gen, device=device)
+        calls = 200
+        events, wall_ms = profile(lambda: knn.knn_cosine_scores_cuda(q, b, k=3), calls)
+        kern = [e for e in events if "knn_" in e[0]]
+        print(json.dumps({"section": "knn", "shape": [n, 700, 512], "k": 3,
+                          "device_events": len(kern),
+                          "device_us_per_call": sum(e - s for _, s, e in kern) / calls,
+                          "host_ms_per_call": wall_ms}), flush=True)
+
+    rng = np.random.default_rng(0)
+    bank = torch.from_numpy(rng.standard_normal((700, 512)).astype(np.float32))
+    meta = {"model": dataclasses.asdict(ModelConfig()), "k": 3, "threshold": 0.5,
+            "batch": chip_smoke.BATCH, "imsize": [chip_smoke.IMSIZE] * 2}
+    scorer = ServedScorer(meta, chip_smoke.reference_state_dict(0), bank, device)
+    x8 = chip_smoke.synthetic_images(rng, chip_smoke.BATCH)
+    calls = 20
+    events, wall_ms = profile(lambda: scorer(x8), calls)
+    by_group, by_name = {}, {}
+    for name, s, e in events:
+        by_group[group(name)] = by_group.get(group(name), 0.0) + (e - s) / calls
+        by_name[name] = by_name.get(name, 0.0) + (e - s) / calls
+    busy = busy_us(events) / calls
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:10]
+    print(json.dumps({
+        "section": "served_batch", "batch": chip_smoke.BATCH, "calls": calls,
+        "wall_ms_per_call": wall_ms, "device_busy_us_per_call": busy,
+        "idle_share": 1.0 - busy / (wall_ms * 1e3) if events else None,
+        "device_us_by_group": by_group,
+        "top_kernels_us": [[name[:80], us] for name, us in top],
+        "device_events": len(events),
+    }), flush=True)
+    print(f"card: {chip_smoke.card_line()}", flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

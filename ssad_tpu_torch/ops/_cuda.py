@@ -1,0 +1,107 @@
+"""Build and load the port's CUDA kernels.
+
+Each ``csrc/<name>.cu`` exposes a plain C interface.  It is compiled with
+``nvcc`` for Hopper (``sm_90a``) into a shared library under
+``ssad_tpu_torch/_build/`` (git-ignored) at first use, and loaded with
+``ctypes``.  The library's file name carries a hash of its source and the
+compiler flags, so an edited source is rebuilt and never served stale.
+Nothing here runs at import time: this module is imported on hosts that
+have neither a card nor ``nvcc``.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+from pathlib import Path
+from typing import Dict, Iterable
+
+PACKAGE_DIR = Path(__file__).resolve().parent.parent
+CSRC_DIR = PACKAGE_DIR / "csrc"
+BUILD_DIR = PACKAGE_DIR / "_build"
+
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-Xptxas", "-v",
+)
+
+#: nvcc's stderr per built kernel (ptxas register/shared-memory report)
+build_logs: Dict[str, str] = {}
+
+_lock = threading.Lock()
+_libs: Dict[str, ctypes.CDLL] = {}
+
+
+class KernelBuildError(RuntimeError):
+    """nvcc is missing or refused a kernel source."""
+
+
+def nvcc_path() -> str:
+    home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH") or "/usr/local/cuda"
+    for cand in (shutil.which("nvcc"), os.path.join(home, "bin", "nvcc")):
+        if cand and os.path.isfile(cand):
+            return cand
+    raise KernelBuildError(
+        "nvcc not found (PATH, $CUDA_HOME/bin, /usr/local/cuda/bin): the "
+        "CUDA kernels are built from ssad_tpu_torch/csrc at first use"
+    )
+
+
+def library_path(name: str) -> Path:
+    src = CSRC_DIR / f"{name}.cu"
+    digest = hashlib.sha256(
+        src.read_bytes() + " ".join(NVCC_FLAGS).encode()
+    ).hexdigest()[:16]
+    return BUILD_DIR / f"lib{name}-{digest}.so"
+
+
+def build(names: Iterable[str]) -> Dict[str, Path]:
+    """Compile every named kernel that is not built yet, one nvcc process
+    per source, all started together.  Returns {name: library path}."""
+    names = list(names)
+    out = {name: library_path(name) for name in names}
+    todo = [name for name in names if not out[name].exists()]
+    if not todo:
+        return out
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    nvcc = nvcc_path()
+    procs = {}
+    for name in todo:
+        tmp = out[name].with_name(f"{out[name].stem}.{os.getpid()}.tmp.so")
+        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC_DIR / f"{name}.cu")]
+        procs[name] = (tmp, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True
+        ))
+    failed = []
+    for name, (tmp, proc) in procs.items():
+        stdout, stderr = proc.communicate()
+        build_logs[name] = stdout + stderr
+        if proc.returncode != 0:
+            failed.append(f"{name}.cu (exit {proc.returncode}):\n{stdout}{stderr}")
+            tmp.unlink(missing_ok=True)
+        else:
+            os.replace(tmp, out[name])
+    if failed:
+        raise KernelBuildError("nvcc failed for " + "\n".join(failed))
+    return out
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The kernel's shared library, built on first use."""
+    with _lock:
+        lib = _libs.get(name)
+        if lib is None:
+            lib = ctypes.CDLL(str(build([name])[name]))
+            _libs[name] = lib
+        return lib
+
+
+def check(status: int, what: str) -> None:
+    """Raise on a non-zero cudaError_t returned by a kernel's C function."""
+    if status != 0:
+        raise RuntimeError(f"{what}: CUDA error {status} at launch")

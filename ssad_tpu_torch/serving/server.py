@@ -1,0 +1,416 @@
+"""Serving runtime: request batching + a stdlib HTTP front end.
+
+Counterpart of ssad_tpu/serving/server.py:52-350, :514-812.  The scorer
+runs one fixed batch shape (serving/export.py), so a launch is paid per
+batch: ``BatchingScorer`` is a dynamic batcher — callers submit single
+images from any thread and wait on a future; a collector thread drains
+the queue until the batch fills or ``max_delay_ms`` expires, pads, runs
+the scorer once and fans the rows back out.
+
+``AnomalyHTTPServer`` puts a dependency-free HTTP API in front:
+
+  POST /score[/<name>]  body: raw .npy (H, W, 3) — float in [0,1] or
+                 uint8 (rescaled) — or any image file PIL can decode
+                 (resized to the model's geometry) → JSON {score, label,
+                 threshold, logits, ms}
+  GET  /healthz  → {"ok": true, "mode": ...} (liveness)
+  GET  /readyz   → {"ready": true} or 503: a zero image actually scores
+                 through every batcher (readiness)
+  GET  /stats    → batcher latency/occupancy counters + the score window
+                 and its drift KS against the artifact's calibration
+                 (serving/drift.py)
+
+The JAX server's /admin/reload, /metrics, native C++ front end and
+multi-device replicas wait for a later slice.  Scorer plumbing is
+callable-agnostic: anything mapping a float32 (B, H, W, 3) array to a
+tuple of per-row arrays serves — a ServedScorer, or a test stub.
+"""
+
+from __future__ import annotations
+
+import collections
+import io
+import json
+import queue
+import threading
+import time
+from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+from typing import Callable, Optional, Sequence, Tuple
+
+import numpy as np
+
+from ssad_tpu_torch.serving.drift import ScoreTracker
+
+
+class Overloaded(RuntimeError):
+    """The batcher's admission queue is full — shed load (HTTP 503)."""
+
+
+class _Request:
+    __slots__ = ("image", "event", "result", "error", "t_submit")
+
+    def __init__(self, image: np.ndarray):
+        self.image = image
+        self.event = threading.Event()
+        self.result: Optional[Tuple[np.ndarray, ...]] = None
+        self.error: Optional[BaseException] = None
+        self.t_submit = time.perf_counter()
+
+
+class BatchingScorer:
+    """Dynamic batcher around one fixed-batch scoring callable."""
+
+    def __init__(
+        self,
+        score_fn: Callable[[np.ndarray], Sequence[np.ndarray]],
+        batch: int,
+        max_delay_ms: float = 5.0,
+        max_queue: Optional[int] = 256,
+    ):
+        self._fn = score_fn
+        self.batch = int(batch)
+        self.max_delay = max_delay_ms / 1e3
+        #: admission bound: with this many requests queued, submit()
+        #: sheds load (Overloaded → HTTP 503); None disables the bound
+        self.max_queue = max_queue
+        self._queue: "queue.Queue[Optional[_Request]]" = queue.Queue()
+        self._lock = threading.Lock()
+        self._latencies = collections.deque(maxlen=1024)
+        self._occupancies = collections.deque(maxlen=1024)
+        self._n_requests = 0
+        self._n_batches = 0
+        self._closed = False
+        #: how long close() waits for the collector thread
+        self._join_s = 10.0
+        self._thread = threading.Thread(target=self._loop, daemon=True)
+        self._thread.start()
+
+    # -- client side ---------------------------------------------------------
+
+    def submit(self, image: np.ndarray) -> _Request:
+        if self._closed:
+            raise RuntimeError("scorer is closed")
+        # qsize() is approximate under concurrency; the bound needs to
+        # hold statistically, not exactly
+        if self.max_queue is not None and self._queue.qsize() >= self.max_queue:
+            raise Overloaded(f"admission queue full ({self.max_queue} pending)")
+        req = _Request(np.asarray(image, dtype=np.float32))
+        self._queue.put(req)
+        return req
+
+    def score(self, image: np.ndarray, timeout: float = 60.0):
+        """Blocking single-image scoring: tuple of per-image results."""
+        req = self.submit(image)
+        if not req.event.wait(timeout):
+            raise TimeoutError("scoring timed out")
+        if req.error is not None:
+            raise req.error
+        return tuple(r[0] for r in req.result)
+
+    def stats(self) -> dict:
+        """Totals are lifetime counters; percentiles and occupancy are
+        over the last ≤1024 requests/batches."""
+        with self._lock:
+            lat = sorted(self._latencies)
+            occ = list(self._occupancies)
+            n_req, n_bat = self._n_requests, self._n_batches
+
+        def pct(p):
+            return lat[min(int(p * len(lat)), len(lat) - 1)] * 1e3 if lat else None
+
+        return {
+            "requests": n_req,
+            "batches": n_bat,
+            "mean_batch_occupancy": float(np.mean(occ)) if occ else None,
+            "latency_ms_p50": pct(0.50),
+            "latency_ms_p95": pct(0.95),
+            "queue_depth": self._queue.qsize(),
+            "max_queue": self.max_queue,
+        }
+
+    def close(self):
+        if self._closed:
+            return
+        self._closed = True
+        self._queue.put(None)
+        self._thread.join(timeout=self._join_s)
+        if self._thread.is_alive():
+            # the collector is inside a long scorer call and has not seen
+            # the sentinel yet; it cancels what is pending when it does
+            return
+        # requests that raced past the _closed check may sit behind the
+        # sentinel — fail them now instead of at their timeout
+        self._cancel_pending()
+
+    def _cancel_pending(self):
+        while True:
+            try:
+                req = self._queue.get_nowait()
+            except queue.Empty:
+                return
+            if req is not None:
+                req.error = RuntimeError("scorer is closed")
+                req.event.set()
+
+    # -- collector thread ----------------------------------------------------
+
+    def _loop(self):
+        while True:
+            req = self._queue.get()
+            if req is None:
+                self._cancel_pending()
+                return
+            reqs = [req]
+            deadline = time.perf_counter() + self.max_delay
+            while len(reqs) < self.batch:
+                budget = deadline - time.perf_counter()
+                if budget <= 0:
+                    break
+                try:
+                    nxt = self._queue.get(timeout=budget)
+                except queue.Empty:
+                    break
+                if nxt is None:
+                    self._run(reqs)
+                    self._cancel_pending()
+                    return
+                reqs.append(nxt)
+            self._run(reqs)
+
+    def _run(self, reqs):
+        n = len(reqs)
+        try:
+            x = np.stack([r.image for r in reqs])
+            if n < self.batch:
+                x = np.pad(x, ((0, self.batch - n),) + ((0, 0),) * 3)
+            results = tuple(np.asarray(r) for r in self._fn(x))
+            now = time.perf_counter()
+            with self._lock:
+                self._occupancies.append(n / self.batch)
+                self._latencies.extend(now - r.t_submit for r in reqs)
+                self._n_batches += 1
+                self._n_requests += n
+            for i, r in enumerate(reqs):
+                r.result = tuple(res[i : i + 1] for res in results)
+                r.event.set()
+        except Exception as e:  # the collector must keep running: fail the batch
+            for r in reqs:
+                r.error = e
+                r.event.set()
+
+
+# -- HTTP front end ----------------------------------------------------------
+
+
+def _decode_image(body: bytes, imsize: Tuple[int, int]) -> np.ndarray:
+    """Request body → (H, W, 3) float32 in [0,1], validated before the
+    request enters the batcher (a wrong-shaped row would fail the whole
+    batch).  Encoded images go through data/mvtec.load_image, the decode
+    the evaluation pipeline uses."""
+    if body[:6] == b"\x93NUMPY":
+        return coerce_image_array(np.load(io.BytesIO(body)), imsize)
+    from ssad_tpu_torch.data.mvtec import load_image
+
+    return load_image(io.BytesIO(body), imsize)
+
+
+def coerce_image_array(arr: np.ndarray, imsize: Tuple[int, int]) -> np.ndarray:
+    """Validate/convert a raw array to the (H, W, 3) float32 [0,1]
+    contract: uint8 is rescaled; floats outside [0,1] are rejected rather
+    than scored against a threshold calibrated on [0,1] data."""
+    if arr.shape != (imsize[0], imsize[1], 3):
+        raise ValueError(
+            f"npy body must be ({imsize[0]}, {imsize[1]}, 3) to match "
+            f"the model geometry, got {arr.shape}"
+        )
+    if arr.dtype == np.uint8:
+        return arr.astype(np.float32) / 255.0
+    if not np.issubdtype(arr.dtype, np.floating):
+        raise ValueError(f"npy dtype must be float or uint8, got {arr.dtype}")
+    arr = arr.astype(np.float32)
+    lo, hi = (float(arr.min()), float(arr.max())) if arr.size else (0.0, 0.0)
+    if lo < -1e-3 or hi > 1.0 + 1e-3:
+        raise ValueError(
+            f"float npy values must be in [0, 1] (got range [{lo:.3g}, "
+            f"{hi:.3g}]); scale before posting"
+        )
+    return arr
+
+
+def build_healthz(models: dict, meta: Optional[dict]) -> dict:
+    if len(models) > 1:
+        return {"ok": True, "models": {name: m.get("mode") for name, (_, m) in models.items()}}
+    return {"ok": True, "mode": (meta or {}).get("mode")}
+
+
+def build_readyz(models: dict, ready_timeout: float) -> Tuple[int, dict]:
+    failures = {}
+    for name, (sc, m) in models.items():
+        try:
+            h, w = m["imsize"]
+            sc.score(np.zeros((h, w, 3), np.float32), timeout=ready_timeout)
+        except Exception as e:  # a probe reports every failure, it does not raise
+            failures[name] = repr(e)
+    if failures:
+        return 503, {"ready": False, "failures": failures}
+    return 200, {"ready": True}
+
+
+def build_stats(models: dict, trackers: dict) -> dict:
+    if len(models) > 1:
+        return {
+            name: {**sc.stats(), "scores": trackers[name].stats()}
+            for name, (sc, _) in models.items()
+        }
+    name, (sc, _) = next(iter(models.items()))
+    return {**sc.stats(), "scores": trackers[name].stats()}
+
+
+def build_score_payload(result, meta: dict, ms: float) -> dict:
+    score, label = result[0], result[1]
+    payload = {
+        "score": float(score),
+        "label": int(label),
+        "threshold": meta.get("threshold"),
+        "ms": round(ms, 3),
+    }
+    if len(result) > 2:
+        payload["logits"] = np.asarray(result[2]).tolist()
+    return payload
+
+
+class AnomalyHTTPServer:
+    """Bind one or many BatchingScorers to an HTTP port (``port=0``
+    picks a free one; read it back from ``.port``).
+
+    ``AnomalyHTTPServer(scorer, meta)`` routes ``POST /score``;
+    ``models={name: (scorer, meta)}`` adds ``POST /score/<name>``, and
+    ``/score`` keeps working while exactly one model is loaded.
+    """
+
+    def __init__(
+        self,
+        scorer: Optional[BatchingScorer] = None,
+        meta: Optional[dict] = None,
+        host: str = "127.0.0.1",
+        port: int = 0,
+        score_timeout: float = 60.0,
+        models: Optional[dict] = None,
+        ready_timeout: float = 10.0,
+    ):
+        if models is None:
+            if scorer is None or meta is None:
+                raise ValueError("pass (scorer, meta) or models={name: (scorer, meta)}")
+            models = {meta.get("subject") or "default": (scorer, meta)}
+        self.models = dict(models)
+        if meta is None and len(self.models) == 1:
+            _, meta = next(iter(self.models.values()))
+        self.meta = meta
+        self.score_timeout = float(score_timeout)
+        self.ready_timeout = float(ready_timeout)
+        self.trackers = {
+            name: ScoreTracker(baseline=m.get("calibration"))
+            for name, (_, m) in self.models.items()
+        }
+        outer = self
+
+        class Handler(BaseHTTPRequestHandler):
+            # keep-alive: every response path sends Content-Length
+            protocol_version = "HTTP/1.1"
+            # without TCP_NODELAY the body segment waits for the client's
+            # delayed ACK of the header segment (~40 ms per response)
+            disable_nagle_algorithm = True
+
+            def log_message(self, *args):  # quiet
+                pass
+
+            def _json(self, code: int, payload: dict):
+                body = json.dumps(payload).encode("utf-8")
+                self.send_response(code)
+                self.send_header("Content-Type", "application/json")
+                self.send_header("Content-Length", str(len(body)))
+                if self.close_connection:
+                    self.send_header("Connection", "close")
+                self.end_headers()
+                self.wfile.write(body)
+
+            def do_GET(self):
+                path = self.path.partition("?")[0]
+                if path == "/readyz":
+                    self._json(*build_readyz(outer.models, outer.ready_timeout))
+                elif path == "/healthz":
+                    self._json(200, build_healthz(outer.models, outer.meta))
+                elif path == "/stats":
+                    self._json(200, build_stats(outer.models, outer.trackers))
+                else:
+                    self._json(404, {"error": f"no route {self.path}"})
+
+            def do_POST(self):
+                path = self.path.partition("?")[0]
+                # Content-Length framing only: an undrained chunked body
+                # would desync the keep-alive socket — reject and close
+                if "chunked" in (self.headers.get("Transfer-Encoding") or "").lower():
+                    self.close_connection = True
+                    self._json(411, {"error": "chunked bodies are not supported; "
+                                              "send Content-Length"})
+                    return
+                # drain the body before any (error) response
+                body = self.rfile.read(int(self.headers.get("Content-Length", "0")))
+                models = outer.models
+                if path == "/score":
+                    if len(models) > 1:
+                        self._json(400, {"error": "several models are loaded; POST "
+                                                  "/score/<name>",
+                                         "models": sorted(models)})
+                        return
+                    name = next(iter(models))
+                elif path.startswith("/score/"):
+                    name = path[len("/score/"):]
+                    if name not in models:
+                        self._json(404, {"error": f"no model {name!r}",
+                                         "models": sorted(models)})
+                        return
+                else:
+                    self._json(404, {"error": f"no route {path}"})
+                    return
+                scorer, meta = models[name]
+                # bad body → 400; queue full → 503; timeout → 504;
+                # scorer fault → 500
+                try:
+                    image = _decode_image(body, tuple(meta["imsize"]))
+                except Exception as e:  # any decode failure is the client's
+                    self._json(400, {"error": repr(e)})
+                    return
+                try:
+                    t0 = time.perf_counter()
+                    result = scorer.score(image, timeout=outer.score_timeout)
+                    payload = build_score_payload(
+                        result, meta, (time.perf_counter() - t0) * 1e3
+                    )
+                    outer.trackers[name].observe(payload["score"])
+                    self._json(200, payload)
+                except Overloaded as e:
+                    self._json(503, {"error": repr(e)})
+                except TimeoutError as e:
+                    self._json(504, {"error": repr(e)})
+                except Exception as e:  # the server keeps serving; the client sees 500
+                    self._json(500, {"error": repr(e)})
+
+        class Server(ThreadingHTTPServer):
+            # the stdlib backlog (5) resets connections under bursts
+            request_queue_size = 128
+            daemon_threads = True
+
+        self._httpd = Server((host, port), Handler)
+        self.port = self._httpd.server_address[1]
+        self._thread = threading.Thread(target=self._httpd.serve_forever, daemon=True)
+
+    def start(self) -> "AnomalyHTTPServer":
+        self._thread.start()
+        return self
+
+    def stop(self):
+        self._httpd.shutdown()
+        self._httpd.server_close()
+        for sc, _ in self.models.values():
+            sc.close()

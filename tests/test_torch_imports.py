@@ -1,0 +1,86 @@
+"""Guards of the port's boundaries: it imports neither JAX nor anything of
+the JAX package, and it runs on the CPU only when asked to."""
+
+import re
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+ROOT = Path(__file__).resolve().parent.parent
+PORT = ROOT / "ssad_tpu_torch"
+MODULES = sorted(
+    ".".join(p.relative_to(ROOT).with_suffix("").parts).removesuffix(".__init__")
+    for p in PORT.rglob("*.py")
+)
+
+
+def test_slice_modules_import_without_jax():
+    code = (
+        "import importlib, sys\n"
+        f"for m in {MODULES!r}: importlib.import_module(m)\n"
+        "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
+        "             or m == 'ssad_tpu' or m.startswith('ssad_tpu.'))\n"
+        "print(len(sys.modules), bad)\n"
+        "sys.exit(1 if bad else 0)\n"
+    )
+    proc = subprocess.run(
+        [sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True, timeout=120
+    )
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert len(MODULES) >= 20
+
+
+_FORBIDDEN = re.compile(
+    r"^\s*(import\s+(jax|flax|orbax)\b|from\s+(jax|flax|orbax)\b"
+    r"|import\s+ssad_tpu(\s|$|\.|,)|from\s+ssad_tpu(\s|\.)(?!_torch))",
+    re.MULTILINE,
+)
+
+
+@pytest.mark.parametrize(
+    "path",
+    sorted(str(p.relative_to(ROOT)) for p in PORT.rglob("*.py"))
+    + ["chip_smoke.py"]
+    + sorted(str(p.relative_to(ROOT)) for p in (ROOT / "scripts").glob("torch_*.py")),
+)
+def test_no_jax_or_jax_package_imports_in_source(path):
+    src = (ROOT / path).read_text()
+    assert not _FORBIDDEN.findall(src), path
+
+
+def test_forbidden_pattern_catches_the_jax_package():
+    for line in ("import jax", "from jax import numpy", "import ssad_tpu",
+                 "from ssad_tpu.ops import knn", "from ssad_tpu import config",
+                 "    import flax.linen as nn"):
+        assert _FORBIDDEN.search(line), line
+    for line in ("from ssad_tpu_torch.ops import knn", "import ssad_tpu_torch"):
+        assert not _FORBIDDEN.search(line), line
+
+
+def test_resolve_device_defaults_to_cuda_or_raises():
+    from ssad_tpu_torch.utils.device import DeviceUnavailable, resolve_device
+
+    assert resolve_device("cpu") == torch.device("cpu")
+    if torch.cuda.is_available():
+        assert resolve_device(None).type == "cuda"
+    else:
+        with pytest.raises(DeviceUnavailable, match="--device cpu"):
+            resolve_device(None)
+        with pytest.raises(DeviceUnavailable):
+            resolve_device("cuda")
+
+
+def test_cli_without_device_flag_refuses_the_cpu(tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default device is usable")
+    (tmp_path / "x.npy").write_bytes(b"")
+    proc = subprocess.run(
+        [sys.executable, "-m", "ssad_tpu_torch.cli", "score",
+         "--artifact", str(tmp_path / "missing.ssadpt"), str(tmp_path / "x.npy")],
+        cwd=ROOT, capture_output=True, text=True, timeout=120,
+    )
+    assert proc.returncode != 0
+    assert "no CUDA device is available" in proc.stderr and "--device cpu" in proc.stderr
