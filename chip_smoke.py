@@ -9,11 +9,20 @@ It imports nothing of JAX or of the JAX package.  Phases (each raises on
 failure; the script exits 0 only when all pass):
 
 1. Print the card's name and power limit (nvidia-smi), build every CUDA
-   kernel of the serving path from ssad_tpu_torch/csrc (one nvcc per
-   source, started together).
+   kernel of the serving paths from ssad_tpu_torch/csrc (knn, knn_tiled,
+   stem_pool: one nvcc per source, started together) and print ptxas's
+   register and spill lines.
 2. Hold each kernel against its plain PyTorch version on the card (TF32
-   off) at the serving path's shapes, max |Δ| ≤ 1e-5, and time kernel,
-   plain version and a library yardstick beside the card's bound.
+   off) at its paths' shapes, and time kernel, plain version and a
+   library yardstick beside the card's bound:
+   * the resident k-NN kernel, max |Δ| ≤ 1e-5;
+   * the fused stem at N ∈ {6728, 841, 9, 1} patches, rtol 2⁻⁷ /
+     atol 1e-6 (one bf16 ulp) with fewer than 1e-3 of the elements not
+     bit-equal;
+   * the streaming bf16x3 k-NN kernel at the request (6728 × 29435) and
+     fit (12615 × 29435) shapes, a ragged tile, duplicates across tiles
+     and splits, and k = 1: max |Δ| ≤ 1e-5 against its plain version and
+     ≤ 3e-5 against the f32 function.
 3. Drive the image-mode serving path at full width: PeraNet/ResNet-18,
    256×256×3 inputs, 512-d embeddings, bf16 compute, seeded random
    weights in the reference layout; a 1000-row bank embedded from
@@ -24,8 +33,22 @@ failure; the script exits 0 only when all pass):
    before and read just after.  Then: HTTP scores equal the direct
    scorer's, scores equal the plain-k-NN path's to 1e-5, the kernel ran,
    and the f32 model (cuDNN TF32 off) on the card matches the CPU port.
-4. Print one JSON line of kernel records, the card line again, and the
-   final {"ok": true, "device": ...} line.
+4. Drive the patch-mode serving path at full width: a seeded MVTec-layout
+   tree of 63 train-good PNGs (50 train, 13 val); ``cli export --mode
+   patch --n-normality-images 50`` (42,050 patch embeddings, 70/30 fit →
+   a 29,435-row bank); the ``serve`` loader behind AnomalyHTTPServer; 16
+   POST /score requests from 4 threads (half with ?heatmap=1, npy and PNG
+   bodies mixed), 6,728 windows per served batch of 8.  Launch counts are
+   reset just before the export and read just after the last request:
+   the stem kernel ran for every normality chunk, calibration chunk and
+   served batch, the tiled kernel for the fit and every such batch.  Then:
+   the bank and header, HTTP map statistics equal the direct scorer's to
+   1e-6, the served maps equal maps rebuilt from the same embeddings
+   through the plain tiled k-NN to 1e-5, every heatmap is a 256×256 PNG,
+   and the f32 model's patch embeddings on the card match the CPU port's
+   to 1e-3.
+5. Print one JSON line of kernel records (all three kernels), the card
+   line again, and the final {"ok": true, "device": ...} line.
 """
 
 from __future__ import annotations
@@ -48,10 +71,17 @@ ROOT = Path(__file__).resolve().parent
 #: NVIDIA H100 SXM data-sheet peaks (dense, at the 700 W limit)
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOP_PER_S = 67e12
+BF16_FLOP_PER_S = 989e12
 KNN_TOL = 1e-5
+KNN_F32_TOL = 3e-5  # the bf16x3 function against the f32 one
 F32_MODEL_TOL = 1e-4
+STEM_RTOL, STEM_ATOL, STEM_MAX_FLIPPED = 2.0**-7, 1e-6, 1e-3
+PATCH_F32_MODEL_TOL = 1e-3  # a one-ulp bf16 flip in the stem carries through the backbone
 N_REQUESTS, N_THREADS = 32, 4
 IMSIZE, BATCH, BANK_ROWS = 256, 8, 1000
+#: patch mode: 63 train-good images (50 train + 13 val), 841 windows each
+PATCH_IMAGES, NORMALITY_IMAGES, PATCH_REQUESTS = 63, 50, 16
+WINDOWS = 841
 
 
 def fail(msg: str) -> None:
@@ -129,13 +159,20 @@ def synthetic_images(rng: np.random.Generator, n: int) -> np.ndarray:
     return np.clip(base + ramp + noise, 0.0, 1.0).astype(np.float32)
 
 
-def cuda_ms(fn, iters: int = 200, warmup: int = 10) -> float:
+def cuda_ms(fn, iters: int = 200, warmup: int = 10, budget_s: float = 0.3) -> float:
+    """CUDA-event ms per call over back-to-back calls after a warmup; the
+    count of calls is cut so that the timing takes about ``budget_s``."""
     import torch
 
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    fn()
+    end.record()
+    torch.cuda.synchronize()
+    iters = max(3, min(iters, int(budget_s * 1e3 / max(start.elapsed_time(end), 1e-3))))
     start.record()
     for _ in range(iters):
         fn()
@@ -194,11 +231,124 @@ def check_knn_kernel(device):
     return records
 
 
-def post(port: int, body: bytes) -> tuple:
+def stem_bound(n: int):
+    """(bound_ms, bound_by): patches read once, weights and affine read
+    once, pooled maps written once, over the HBM rate, vs the conv's bf16
+    products over the tensor-core rate."""
+    nbytes = 2 * n * 32 * 32 * 3 + 2 * 48 * 64 + 4 * 2 * 64 + 2 * n * 16 * 16 * 64
+    flops = 2 * n * 32 * 32 * 64 * 48
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / BF16_FLOP_PER_S
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def check_stem_kernel(device):
+    """The fused stem kernel vs its plain version; library yardstick:
+    cuDNN conv (bf16, channels_last) → affine → ReLU → max_pool2d."""
+    import torch
+    import torch.nn.functional as F
+
+    from ssad_tpu_torch.ops import stem_pool
+
+    gen = torch.Generator(device=device).manual_seed(1)
+    k4 = 0.3 * torch.randn((4, 4, 3, 64), generator=gen, device=device)
+    scale = 0.5 + torch.rand(64, generator=gen, device=device)
+    bias = 0.1 * torch.randn(64, generator=gen, device=device)
+    w = k4.permute(3, 2, 0, 1).to(torch.bfloat16).contiguous(memory_format=torch.channels_last)
+
+    def library(x):
+        xin = F.pad(x.permute(0, 3, 1, 2), (2, 1, 2, 1)).contiguous(
+            memory_format=torch.channels_last)
+        y = F.conv2d(xin, w).float()
+        y = torch.relu(y * scale.view(1, -1, 1, 1) + bias.view(1, -1, 1, 1))
+        return F.max_pool2d(y, 3, 2, 1).to(torch.bfloat16).permute(0, 2, 3, 1)
+
+    records = {}
+    for n in (BATCH * WINDOWS, WINDOWS, 9, 1):
+        x = (2 * torch.rand((n, 32, 32, 3), generator=gen, device=device) - 1).to(torch.bfloat16)
+        out = stem_pool.stem_pool_cuda(x, k4, scale, bias)
+        torch.cuda.synchronize()
+        ref = stem_pool.stem_pool_plain(x, k4, scale, bias)
+        o, r = out.float(), ref.float()
+        flipped = (o != r).float().mean().item()
+        err = float(torch.max(torch.abs(o - r)))
+        if tuple(out.shape) != (n, 16, 16, 64) or not flipped < STEM_MAX_FLIPPED or not bool(
+            torch.allclose(o, r, rtol=STEM_RTOL, atol=STEM_ATOL)
+        ):
+            fail(f"stem kernel vs plain at N={n}: {flipped:.2e} of elements off, max|d|={err}")
+        lib_err = float(torch.max(torch.abs(library(x).float() - r)))
+        rec = {
+            "shape": [n, 32, 32, 3], "max_abs_err": err, "flipped_share": flipped,
+            "library_max_abs_err": lib_err,
+            "ms": cuda_ms(lambda: stem_pool.stem_pool_cuda(x, k4, scale, bias)),
+            "plain_ms": cuda_ms(lambda: stem_pool.stem_pool_plain(x, k4, scale, bias)),
+            "library_ms": cuda_ms(lambda: library(x)),
+        }
+        rec["bound_ms"], rec["bound_by"] = stem_bound(n)
+        records[n] = rec
+        print(f"stem N={n}: {json.dumps(rec)}", flush=True)
+    return records
+
+
+def tiled_bound(n: int, m: int, d: int):
+    """(bound_ms, bound_by): inputs read once and scores written once over
+    the HBM rate, vs the three bf16 products per element pair over the
+    tensor-core rate."""
+    nbytes = 4 * (n * d + m * d + n)
+    flops = 3 * 2 * n * m * d
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / BF16_FLOP_PER_S
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def check_tiled_kernel(device):
+    """The streaming bf16x3 k-NN kernel vs its plain version and the f32
+    function; library yardstick: torch.topk(q̂ @ b̂ᵀ) in f32, TF32 off."""
+    import torch
+
+    from ssad_tpu_torch.ops import knn
+
+    gen = torch.Generator(device=device).manual_seed(2)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=device)
+
+    fit_rows = NORMALITY_IMAGES * WINDOWS - round(0.3 * NORMALITY_IMAGES * WINDOWS)  # 29435
+    cases = {
+        "serve": (randn(BATCH * WINDOWS, 512), randn(fit_rows, 512), 3),
+        "fit": (randn(NORMALITY_IMAGES * WINDOWS - fit_rows, 512), randn(fit_rows, 512), 3),
+        "ragged": (randn(40, 512), randn(2500, 512), 3),
+        "k1": (randn(37, 512), randn(3000, 512), 1),
+    }
+    base = randn(5000, 512)
+    cases["duplicates"] = (base[:16] + 1e-3 * randn(16, 512), torch.cat([base, base[:300]]), 3)
+
+    records = {}
+    for name, (q, b, k) in cases.items():
+        out = knn.knn_cosine_scores_tiled_cuda(q, b, k=k)
+        torch.cuda.synchronize()
+        err = float(torch.max(torch.abs(out - knn.knn_cosine_scores_tiled_plain(q, b, k=k))))
+        err32 = float(torch.max(torch.abs(out - knn.knn_cosine_scores_plain(q, b, k=k))))
+        if not (err <= KNN_TOL and err32 <= KNN_F32_TOL):
+            fail(f"tiled knn kernel vs plain on {name} {tuple(q.shape)}x{tuple(b.shape)}: "
+                 f"max|d|={err} (bf16x3), {err32} (f32)")
+        rec = {"shape": [q.shape[0], b.shape[0], q.shape[1]], "k": k, "max_abs_err": err,
+               "max_abs_err_vs_f32": err32}
+        if name in ("serve", "fit"):
+            qn, bn = knn.l2_normalize(q), knn.l2_normalize(b)
+            rec["ms"] = cuda_ms(lambda: knn.knn_cosine_scores_tiled_cuda(q, b, k=k))
+            rec["plain_ms"] = cuda_ms(lambda: knn.knn_cosine_scores_tiled_plain(q, b, k=k),
+                                      warmup=2)
+            rec["library_ms"] = cuda_ms(lambda: torch.topk(qn @ bn.T, k, dim=1), warmup=2)
+            rec["bound_ms"], rec["bound_by"] = tiled_bound(q.shape[0], b.shape[0], q.shape[1])
+        records[name] = rec
+        print(f"knn_tiled {name}: {json.dumps(rec)}", flush=True)
+    return records
+
+
+def post(port: int, body: bytes, path: str = "/score") -> tuple:
     conn = http.client.HTTPConnection("127.0.0.1", port, timeout=120)
     try:
         t0 = time.perf_counter()
-        conn.request("POST", "/score", body=body,
+        conn.request("POST", path, body=body,
                      headers={"Content-Type": "application/octet-stream"})
         resp = conn.getresponse()
         data = resp.read()
@@ -206,7 +356,7 @@ def post(port: int, body: bytes) -> tuple:
     finally:
         conn.close()
     if resp.status != 200:
-        raise RuntimeError(f"POST /score → {resp.status}: {data[:300]!r}")
+        raise RuntimeError(f"POST {path} → {resp.status}: {data[:300]!r}")
     return json.loads(data), ms
 
 
@@ -374,6 +524,194 @@ def drive_serving_path(device, work: Path):
     return launches
 
 
+def drive_patch_path(device, work: Path, seed: int = 1):
+    """Phase 4: the full-width patch serving path through the user entry
+    points; ``seed`` draws the train-good images and the requests.
+    Returns ({kernel name: launches}, serving summary)."""
+    import base64
+
+    import torch
+    from PIL import Image
+
+    from ssad_tpu_torch import cli
+    from ssad_tpu_torch.config import ModelConfig
+    from ssad_tpu_torch.data.mvtec import load_image
+    from ssad_tpu_torch.evaluation.inference import InferenceEngine
+    from ssad_tpu_torch.models.peranet import build_model
+    from ssad_tpu_torch.ops import image as im
+    from ssad_tpu_torch.ops import knn, stem_pool
+    from ssad_tpu_torch.serving.cli import _load_artifact_models
+    from ssad_tpu_torch.serving.server import AnomalyHTTPServer, coerce_image_array
+    from ssad_tpu_torch.utils.ref_checkpoint import save_reference_checkpoint
+
+    sd = reference_state_dict(0)
+    rng = np.random.default_rng(seed)
+    t0 = time.perf_counter()
+    good = work / "mvtec" / "bottle" / "train" / "good"
+    good.mkdir(parents=True)
+    for i, img in enumerate(synthetic_images(rng, PATCH_IMAGES)):
+        Image.fromarray((img * 255).astype(np.uint8)).save(good / f"{i:03d}.png")
+    models_dir = work / "patch_models"
+    save_reference_checkpoint(models_dir / "bottle" / "best_model.ckpt", sd)
+    print(f"patch data: {PATCH_IMAGES} PNGs + checkpoint in {time.perf_counter() - t0:.2f} s",
+          flush=True)
+
+    req_imgs = synthetic_images(rng, PATCH_REQUESTS)
+    bodies, expected_inputs = [], []
+    for i, img in enumerate(req_imgs):
+        buf = io.BytesIO()
+        if i % 2 == 0:
+            np.save(buf, img)
+            expected_inputs.append(coerce_image_array(img, (IMSIZE, IMSIZE)))
+        else:
+            Image.fromarray((img * 255).astype(np.uint8)).save(buf, "PNG")
+            expected_inputs.append(load_image(io.BytesIO(buf.getvalue()), (IMSIZE, IMSIZE)))
+        bodies.append(buf.getvalue())
+
+    # ---- the patch path: counts to 0 just before, read just after ---------
+    knn.knn_cosine_scores_cuda.launches = 0
+    knn.knn_cosine_scores_tiled_cuda.launches = 0
+    stem_pool.stem_pool_cuda.launches = 0
+    artifact = work / "bottle_patch.ssadpt"
+    t0 = time.perf_counter()
+    rc = cli.main(["export", "--models-dir", str(models_dir), "--subject", "bottle",
+                   "--mode", "patch", "--dataset-dir", str(work / "mvtec"),
+                   "--n-normality-images", str(NORMALITY_IMAGES), "--batch", str(BATCH),
+                   "--imsize", str(IMSIZE), "--out", str(artifact)])
+    if rc != 0:
+        fail(f"cli export --mode patch returned {rc}")
+    export_s = time.perf_counter() - t0
+    models, warmup_s = _load_artifact_models([str(artifact)], 5.0, 256, device)
+    batcher, meta = models["bottle"]
+    server = AnomalyHTTPServer(models=models, port=0).start()
+    results = [None] * PATCH_REQUESTS
+    latencies = [None] * PATCH_REQUESTS
+    errors = []
+
+    def client(tid: int):
+        try:
+            for i in range(tid, PATCH_REQUESTS, N_THREADS):
+                path = "/score?heatmap=1" if i % 4 < 2 else "/score"
+                results[i], latencies[i] = post(server.port, bodies[i], path)
+        except Exception as e:  # reported by the main thread below
+            errors.append(repr(e))
+
+    try:
+        threads = [threading.Thread(target=client, args=(t,)) for t in range(N_THREADS)]
+        t0 = time.perf_counter()
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=300)
+        http_s = time.perf_counter() - t0
+        if any(t.is_alive() for t in threads):
+            fail("patch HTTP client threads did not finish")
+        batcher_stats = batcher.stats()
+    finally:
+        server.stop()
+    launches = {
+        "knn_cosine_scores": knn.knn_cosine_scores_cuda.launches,
+        "knn_cosine_scores_tiled": knn.knn_cosine_scores_tiled_cuda.launches,
+        "stem_pool": stem_pool.stem_pool_cuda.launches,
+    }
+    # ---- end of the patch path --------------------------------------------
+    if errors:
+        fail(f"patch HTTP requests failed: {errors[:3]}")
+    batches = batcher_stats["batches"]
+    normality_chunks = -(-NORMALITY_IMAGES // 4)
+    calibration_chunks = -(-(PATCH_IMAGES - NORMALITY_IMAGES) // 4)
+    print(f"patch path: export {export_s:.2f} s, warmup {warmup_s:.2f} s, {PATCH_REQUESTS} "
+          f"requests in {http_s:.3f} s, batches {batches}, launches {json.dumps(launches)}",
+          flush=True)
+    if launches["stem_pool"] < normality_chunks + calibration_chunks + batches:
+        fail(f"stem kernel launches {launches['stem_pool']} < {normality_chunks} normality + "
+             f"{calibration_chunks} calibration chunks + {batches} batches")
+    if launches["knn_cosine_scores_tiled"] < 1 + calibration_chunks + batches:
+        fail(f"tiled knn launches {launches['knn_cosine_scores_tiled']} < fit + "
+             f"{calibration_chunks} calibration chunks + {batches} batches")
+
+    scorer = batcher._fn
+    fit_rows = NORMALITY_IMAGES * WINDOWS - round(0.3 * NORMALITY_IMAGES * WINDOWS)
+    if tuple(scorer.bank.shape) != (fit_rows, 512) or meta["knn_impl"] != "cuda_tiled":
+        fail(f"patch bank {tuple(scorer.bank.shape)} != ({fit_rows}, 512) or knn_impl "
+             f"{meta['knn_impl']!r}")
+    if (meta["mode"], meta["upsample_to"], meta["batch"]) != ("patch", IMSIZE, BATCH):
+        fail(f"patch header {meta['mode']}, upsample_to {meta['upsample_to']}, batch {meta['batch']}")
+    (direct,) = scorer(np.stack(expected_inputs))
+    if direct.shape != (PATCH_REQUESTS, IMSIZE, IMSIZE) or not np.isfinite(direct).all():
+        fail(f"patch maps {direct.shape}, finite={np.isfinite(direct).all()}")
+    http_max = np.array([r["map_max"] for r in results])
+    http_mean = np.array([r["map_mean"] for r in results])
+    http_vs_direct = max(float(np.max(np.abs(http_max - direct.max(axis=(1, 2))))),
+                         float(np.max(np.abs(http_mean - direct.mean(axis=(1, 2))))))
+    if not http_vs_direct <= 1e-6:
+        fail(f"HTTP map statistics vs direct scorer: max|d|={http_vs_direct}")
+    n_heat = 0
+    for r in results:
+        if "heatmap_b64" in r:
+            png = Image.open(io.BytesIO(base64.b64decode(r["heatmap_b64"])))
+            if png.size != (IMSIZE, IMSIZE) or png.mode != "L":
+                fail(f"heatmap PNG {png.size} {png.mode}")
+            n_heat += 1
+    if n_heat != PATCH_REQUESTS // 2:
+        fail(f"{n_heat} heatmaps for {PATCH_REQUESTS // 2} ?heatmap=1 requests")
+
+    # the served maps, rebuilt from the scorer's own patch embeddings
+    # through the plain tiled k-NN: isolates the k-NN kernel
+    x = torch.from_numpy(np.stack(expected_inputs)).to(device)
+    rebuilt = []
+    for lo in range(0, PATCH_REQUESTS, BATCH):
+        _, emb, n = scorer.engine.predict_patches(im.normalize_imagenet(x[lo:lo + BATCH]))
+        scores = knn.knn_cosine_scores_tiled_plain(emb, scorer.bank, k=scorer.k)
+        side = int(round(n ** 0.5))
+        rebuilt.append(im.upsample_anomaly_maps(scores.reshape(-1, side, side), IMSIZE))
+    rebuilt = torch.cat(rebuilt).cpu().numpy()
+    plain_vs_served = float(np.max(np.abs(rebuilt - direct)))
+    if not plain_vs_served <= KNN_TOL:
+        fail(f"served maps vs plain tiled k-NN on the same embeddings: max|d|={plain_vs_served}")
+
+    x8 = np.stack(expected_inputs[:BATCH])
+    scorer(x8)
+    times = []
+    for _ in range(10):
+        t0 = time.perf_counter()
+        scorer(x8)
+        times.append((time.perf_counter() - t0) * 1e3)
+    lat = np.sort(np.array(latencies))
+    serving = {
+        "patches_per_batch": BATCH * WINDOWS,
+        "bank_rows": int(scorer.bank.shape[0]),
+        "batch8_scorer_ms_p50": float(np.median(times)),
+        "batch8_scorer_ms_sorted": sorted(times),
+        "http_p50_ms": float(np.percentile(lat, 50)),
+        "http_p95_ms": float(np.percentile(lat, 95)),
+        "http_latencies_ms_sorted": lat.tolist(),
+        "http_requests": PATCH_REQUESTS, "http_threads": N_THREADS, "http_wall_s": http_s,
+        "batches": batches, "mean_batch_occupancy": batcher_stats["mean_batch_occupancy"],
+        "export_s": export_s, "warmup_s": warmup_s,
+        "http_vs_direct_max_abs": http_vs_direct,
+        "served_vs_plain_tiled_knn_max_abs": plain_vs_served,
+        "map_max_range": [float(http_max.min()), float(http_max.max())],
+        "threshold": meta["threshold"], "calibration_n": (meta["calibration"] or {}).get("n"),
+    }
+
+    # the f32 model's patch embeddings on the card (cuDNN TF32 off) vs the CPU port
+    two = np.stack(expected_inputs[:2])
+    embs = []
+    for dev in (device, torch.device("cpu")):
+        m32 = build_model(ModelConfig(compute_dtype="float32"))
+        m32.load_state_dict(sd, strict=True)
+        eng = InferenceEngine(m32, dev)
+        embs.append(eng.predict_patches(im.normalize_imagenet(torch.from_numpy(two).to(dev)))[1]
+                    .cpu().numpy())
+    emb_err = float(np.max(np.abs(embs[0] - embs[1])))
+    if embs[0].shape != (2 * WINDOWS, 512) or not emb_err <= PATCH_F32_MODEL_TOL:
+        fail(f"f32 patch embeddings cuda vs cpu: shape {embs[0].shape}, max|d|={emb_err}")
+    serving["f32_patch_embeddings_cuda_vs_cpu_max_abs"] = emb_err
+    print(f"patch serving: {json.dumps(serving)}", flush=True)
+    return launches, serving
+
+
 def main() -> int:
     try:
         import torch
@@ -400,7 +738,7 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
 
     t0 = time.perf_counter()
-    libs = _cuda.build(["knn"])
+    libs = _cuda.build(["knn", "knn_tiled", "stem_pool"])
     print(f"build: {sorted(libs)} in {time.perf_counter() - t0:.2f} s", flush=True)
     for name, log in _cuda.build_logs.items():
         for line in log.splitlines():
@@ -408,23 +746,51 @@ def main() -> int:
                 print(f"ptxas {name}: {line.strip()}", flush=True)
 
     records = check_knn_kernel(device)
+    stem_records = check_stem_kernel(device)
+    tiled_records = check_tiled_kernel(device)
     work = Path(tempfile.mkdtemp(prefix=".chip_smoke_", dir=ROOT))
     try:
         launches = drive_serving_path(device, work)
+        patch_launches, _ = drive_patch_path(device, work)
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
     serve = records["serve"]
-    kernel = {
+    kernels = [{
         "name": "knn_cosine_scores", "route": "cuda",
         "source": "ssad_tpu_torch/csrc/knn.cu", "replaces": "ssad_tpu/ops/knn.py:42",
         "launches": launches,
         "max_abs_err": max(r["max_abs_err"] for r in records.values()),
         "ms": serve["ms"], "plain_ms": serve["plain_ms"], "bound_ms": serve["bound_ms"],
         "bound_by": serve["bound_by"], "library_ms": serve["library_ms"],
-        "shape": serve["shape"], "k": serve["k"],
-    }
-    print(json.dumps({"kernels": [kernel]}), flush=True)
+        "shape": serve["shape"], "k": serve["k"], "path": "image",
+    }]
+    tserve = tiled_records["serve"]
+    kernels.append({
+        "name": "knn_cosine_scores_tiled", "route": "cuda",
+        "source": "ssad_tpu_torch/csrc/knn_tiled.cu", "replaces": "ssad_tpu/ops/knn.py:165",
+        "launches": patch_launches["knn_cosine_scores_tiled"],
+        "max_abs_err": max(r["max_abs_err"] for r in tiled_records.values()),
+        "ms": tserve["ms"], "plain_ms": tserve["plain_ms"], "bound_ms": tserve["bound_ms"],
+        "bound_by": tserve["bound_by"], "library_ms": tserve["library_ms"],
+        "shape": tserve["shape"], "k": tserve["k"], "path": "patch",
+    })
+    sserve = stem_records[BATCH * WINDOWS]
+    kernels.append({
+        "name": "stem_pool", "route": "cuda",
+        "source": "ssad_tpu_torch/csrc/stem_pool.cu", "replaces": "ssad_tpu/ops/stem_pool.py:284",
+        "launches": patch_launches["stem_pool"],
+        "max_abs_err": max(r["max_abs_err"] for r in stem_records.values()),
+        "ms": sserve["ms"], "plain_ms": sserve["plain_ms"], "bound_ms": sserve["bound_ms"],
+        "bound_by": sserve["bound_by"], "library_ms": sserve["library_ms"],
+        "shape": sserve["shape"], "path": "patch",
+        "tolerance": "rtol 2^-7, atol 1e-6; < 1e-3 of elements not bit-equal",
+        "flipped_share": max(r["flipped_share"] for r in stem_records.values()),
+    })
+    for rec in kernels:
+        if rec["launches"] < 1:
+            fail(f"{rec['name']} was not launched on its path")
+    print(json.dumps({"kernels": kernels}), flush=True)
     print(card_line(), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,20 +1,27 @@
 #!/usr/bin/env python3
-"""Device-time breakdown of the port's image-mode serving path on a card.
+"""Device-time breakdown of the port's serving paths on a card.
 
 Run from the repository root on a machine with one CUDA card:
 
-    python3 scripts/torch_serving_profile.py
+    python3 scripts/torch_serving_profile.py [--mode image|patch|both]
 
-Builds the full-width scorer of chip_smoke.py (PeraNet/ResNet-18, 256²,
-bf16 backbone, seeded weights, a 700-row f32 bank, k = 3, batch 8) and
-traces it with torch.profiler:
+Builds the full-width scorers of chip_smoke.py (PeraNet/ResNet-18, 256²,
+bf16 backbone, seeded weights, k = 3, batch 8) and traces them with
+torch.profiler:
 
-* ``knn``: device time per call of the CUDA k-NN kernel (its two kernels
-  summed) at the serving shape (8 × 700 × 512) and the fit shape
-  (300 × 700 × 512), beside the host-clock time per call;
-* ``served_batch``: one batch-8 ``ServedScorer`` call — wall time, device
-  busy time, idle share, and device time by group (k-NN kernel, copies,
-  the rest = the model) with the top kernels by time.
+* image mode (a 700-row f32 bank):
+  * ``knn``: device time per call of the resident k-NN kernel (its two
+    kernels summed) at the serving shape (8 × 700 × 512) and the fit
+    shape (300 × 700 × 512), beside the host-clock time per call;
+  * ``served_batch``: one batch-8 ``ServedScorer`` call — wall time,
+    device busy time, idle share, and device time by group (k-NN kernel,
+    copies, the rest = the model) with the top kernels by time;
+* patch mode (a 29,435-row f32 bank, 6,728 windows per batch):
+  * ``kernels``: device time per call of the stem kernel at N = 6728 and
+    of the tiled k-NN kernel (its two kernels summed) at 6728 × 29435;
+  * ``served_batch``: as above, with the groups stem kernel, tiled k-NN
+    kernel, the split/normalise ops around it, copies, and the rest (the
+    backbone, head and the blur ⊗ upsample products).
 
 Prints one JSON line per section and the card's name and power limit.
 Imports nothing of JAX or of the JAX package.
@@ -22,6 +29,7 @@ Imports nothing of JAX or of the JAX package.
 
 from __future__ import annotations
 
+import argparse
 import dataclasses
 import json
 import sys
@@ -63,6 +71,10 @@ def busy_us(events) -> float:
 
 
 def group(name: str) -> str:
+    if "stem_pool" in name:
+        return "stem_kernel"
+    if "knn_tiled" in name:
+        return "knn_tiled_kernel"
     if "knn_" in name:
         return "knn_kernel"
     if "Memcpy" in name or "memcpy" in name:
@@ -89,20 +101,31 @@ def profile(fn, calls: int):
     return device_events(prof), wall_ms
 
 
-def main() -> int:
+def breakdown(scorer, x, calls: int, section: dict) -> None:
+    """Trace ``calls`` scorer calls and print the device-time groups."""
+    events, wall_ms = profile(lambda: scorer(x), calls)
+    by_group, by_name = {}, {}
+    for name, s, e in events:
+        by_group[group(name)] = by_group.get(group(name), 0.0) + (e - s) / calls
+        by_name[name] = by_name.get(name, 0.0) + (e - s) / calls
+    busy = busy_us(events) / calls
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:12]
+    print(json.dumps({
+        **section, "section": "served_batch", "batch": chip_smoke.BATCH, "calls": calls,
+        "wall_ms_per_call": wall_ms, "device_busy_us_per_call": busy,
+        "idle_share": 1.0 - busy / (wall_ms * 1e3) if events else None,
+        "device_us_by_group": by_group,
+        "top_kernels_us": [[name[:80], us] for name, us in top],
+        "device_events_per_call": len(events) / calls,
+    }), flush=True)
+
+
+def image_mode(device) -> None:
     import torch
 
-    if not torch.cuda.is_available():
-        print("torch_serving_profile: needs a CUDA card", file=sys.stderr)
-        return 1
     from ssad_tpu_torch.config import ModelConfig
     from ssad_tpu_torch.ops import knn
     from ssad_tpu_torch.serving.export import ServedScorer
-
-    device = torch.device("cuda")
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    print(f"card: {chip_smoke.card_line()}", flush=True)
 
     gen = torch.Generator(device=device).manual_seed(0)
     for label, n in (("serve", 8), ("fit", 300)):
@@ -118,26 +141,69 @@ def main() -> int:
 
     rng = np.random.default_rng(0)
     bank = torch.from_numpy(rng.standard_normal((700, 512)).astype(np.float32))
-    meta = {"model": dataclasses.asdict(ModelConfig()), "k": 3, "threshold": 0.5,
-            "batch": chip_smoke.BATCH, "imsize": [chip_smoke.IMSIZE] * 2}
+    meta = {"mode": "image", "model": dataclasses.asdict(ModelConfig()), "k": 3,
+            "threshold": 0.5, "batch": chip_smoke.BATCH, "imsize": [chip_smoke.IMSIZE] * 2}
     scorer = ServedScorer(meta, chip_smoke.reference_state_dict(0), bank, device)
-    x8 = chip_smoke.synthetic_images(rng, chip_smoke.BATCH)
-    calls = 20
-    events, wall_ms = profile(lambda: scorer(x8), calls)
-    by_group, by_name = {}, {}
-    for name, s, e in events:
-        by_group[group(name)] = by_group.get(group(name), 0.0) + (e - s) / calls
-        by_name[name] = by_name.get(name, 0.0) + (e - s) / calls
-    busy = busy_us(events) / calls
-    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:10]
-    print(json.dumps({
-        "section": "served_batch", "batch": chip_smoke.BATCH, "calls": calls,
-        "wall_ms_per_call": wall_ms, "device_busy_us_per_call": busy,
-        "idle_share": 1.0 - busy / (wall_ms * 1e3) if events else None,
-        "device_us_by_group": by_group,
-        "top_kernels_us": [[name[:80], us] for name, us in top],
-        "device_events": len(events),
-    }), flush=True)
+    breakdown(scorer, chip_smoke.synthetic_images(rng, chip_smoke.BATCH), 20, {"mode": "image"})
+
+
+def patch_mode(device) -> None:
+    import torch
+
+    from ssad_tpu_torch.config import ModelConfig
+    from ssad_tpu_torch.ops import knn, stem_pool
+    from ssad_tpu_torch.serving.export import ServedScorer
+
+    n = chip_smoke.BATCH * chip_smoke.WINDOWS
+    m = 29435  # 50 images x 841 windows, after the 70/30 fit
+    gen = torch.Generator(device=device).manual_seed(0)
+    x = (2 * torch.rand((n, 32, 32, 3), generator=gen, device=device) - 1).to(torch.bfloat16)
+    k4 = 0.3 * torch.randn((4, 4, 3, 64), generator=gen, device=device)
+    scale, bias = torch.ones(64, device=device), torch.zeros(64, device=device)
+    q = torch.randn((n, 512), generator=gen, device=device)
+    b = torch.randn((m, 512), generator=gen, device=device)
+    for name, fn, key, shape in (
+        ("stem_pool", lambda: stem_pool.stem_pool_cuda(x, k4, scale, bias), "stem_pool",
+         [n, 32, 32, 3]),
+        ("knn_cosine_scores_tiled", lambda: knn.knn_cosine_scores_tiled_cuda(q, b, k=3),
+         "knn_tiled", [n, m, 512]),
+    ):
+        calls = 20
+        events, wall_ms = profile(fn, calls)
+        kern = [e for e in events if key in e[0]]
+        print(json.dumps({"section": "kernels", "mode": "patch", "kernel": name,
+                          "shape": shape, "device_events": len(kern),
+                          "device_us_per_call": sum(e - s for _, s, e in kern) / calls,
+                          "device_us_all_ops_per_call": sum(e - s for _, s, e in events) / calls,
+                          "host_ms_per_call": wall_ms}), flush=True)
+
+    rng = np.random.default_rng(0)
+    bank = torch.from_numpy(rng.standard_normal((m, 512)).astype(np.float32))
+    meta = {"mode": "patch", "model": dataclasses.asdict(ModelConfig()), "k": 3,
+            "threshold": 0.5, "batch": chip_smoke.BATCH, "imsize": [chip_smoke.IMSIZE] * 2,
+            "patch_dim": 32, "stride": 8, "upsample_to": chip_smoke.IMSIZE}
+    scorer = ServedScorer(meta, chip_smoke.reference_state_dict(0), bank, device)
+    breakdown(scorer, chip_smoke.synthetic_images(rng, chip_smoke.BATCH), 5,
+              {"mode": "patch", "patches": n, "bank_rows": m})
+
+
+def main() -> int:
+    import torch
+
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--mode", default="both", choices=["image", "patch", "both"])
+    args = parser.parse_args()
+    if not torch.cuda.is_available():
+        print("torch_serving_profile: needs a CUDA card", file=sys.stderr)
+        return 1
+    device = torch.device("cuda")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    print(f"card: {chip_smoke.card_line()}", flush=True)
+    if args.mode in ("image", "both"):
+        image_mode(device)
+    if args.mode in ("patch", "both"):
+        patch_mode(device)
     print(f"card: {chip_smoke.card_line()}", flush=True)
     return 0
 

@@ -7,18 +7,24 @@ there it keeps as its own copy.
 
 Every entry point runs on the CUDA device unless the caller asks for the
 CPU (``device="cpu"`` / ``--device cpu``); with no card and no explicit
-CPU request it raises (utils/device.py).  The k-NN scorer is a CUDA
-kernel written for Hopper (csrc/knn.cu), built with nvcc at first use.
+CPU request it raises (utils/device.py).  The kernels of the serving
+paths are CUDA written for Hopper (csrc/knn.cu, csrc/knn_tiled.cu,
+csrc/stem_pool.cu), built with nvcc at first use.
 
-Package map (this slice: the image-mode serving path):
+Package map (so far: the image- and patch-mode serving paths):
   config, constants  — dataclass configuration, MVTec taxonomy
   utils/             — device resolution, reference-checkpoint I/O,
-                       the JAX-variables → state_dict bridge
-  ops/               — image normalization/resize, k-NN scoring + kernel
-  models/            — ResNet-18, PeraNet, AnomalyDetector
+                       the JAX-variables → state_dict bridge, dataset
+                       listing
+  ops/               — image normalization/resize/blur ⊗ upsample, window
+                       extraction, the fused stem and k-NN scoring, each
+                       with its kernel
+  models/            — ResNet-18 (with the folded 32×32 stem), PeraNet,
+                       AnomalyDetector
   train/             — the memory bank's ring view
-  evaluation/        — InferenceEngine and the normality source
-  data/              — image decoding
+  evaluation/        — InferenceEngine (image and patch paths) and the
+                       normality source
+  data/              — image decoding, the train-good split
   serving/           — export artifact, batching HTTP server, CLI
 """
 

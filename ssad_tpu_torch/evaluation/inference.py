@@ -1,10 +1,18 @@
-"""Inference: the eval-mode forward of one trained model, and the
-normality source for the detector.
+"""Inference: the eval-mode forward of one trained model, the patch
+path, and the normality source for the detector.
 
-Counterpart of the image branch of ssad_tpu/evaluation/inference.py
-(InferenceEngine.predict_batch :39-183, pad_to_batch :221-232,
-normality_embeddings :341-378, load_engine :438-446).  The patch path
-(predict_patches, score_patch_maps) waits for the patch slice.
+Counterpart of ssad_tpu/evaluation/inference.py (InferenceEngine :39-218
+without the Mahalanobis and s2d routes, pad_to_batch :221-232,
+normality_embeddings :341-378, load_engine :438-446).
+
+Patch mode: the (B, H, W, 3) images are cut into dim×dim windows at a
+stride (row-major order), cast to bf16 whatever the compute dtype (as the
+JAX engine does), and flattened to one (B·P, dim, dim, 3) batch.  32×32
+windows take the fused stem (ops/stem_pool.py: the CUDA kernel on the
+card, its plain version on the CPU) and re-enter the model after the
+stem's maxpool; other sizes run the module forward.  ``score_patch_maps``
+adds k-NN scoring against a bank, the (B, side, side) reshape and the
+blur ⊗ upsample to the image size.
 """
 
 from __future__ import annotations
@@ -18,16 +26,21 @@ import torch
 from ssad_tpu_torch.config import ModelConfig
 from ssad_tpu_torch.models.peranet import PeraNet, build_model
 from ssad_tpu_torch.ops import image as im
+from ssad_tpu_torch.ops import stem_pool
+from ssad_tpu_torch.ops.knn import knn_cosine_scores
+from ssad_tpu_torch.ops.patches import extract_patches
 from ssad_tpu_torch.train.memory_bank import MemoryBank, newest_first
 from ssad_tpu_torch.utils.device import resolve_device
 
 
 class InferenceEngine:
-    """A PeraNet in eval mode on one device."""
+    """A PeraNet in eval mode on one device.  32×32 patch batches take the
+    fused stem (ops/stem_pool.py)."""
 
     def __init__(self, model: PeraNet, device=None):
         self.device = resolve_device(device)
         self.model = model.to(self.device).eval()
+        self._stem_affine = None  # (folded kernel, scale', bias') on the device
 
     def predict_batch(self, x_normalized) -> Tuple[torch.Tensor, torch.Tensor]:
         """ImageNet-normalized (B, H, W, 3) → (logits, embeddings), f32 on
@@ -36,6 +49,54 @@ class InferenceEngine:
         with torch.inference_mode():
             out = self.model(x)
         return out["classifier"], out["latent_space"]
+
+    def stem_affine(self):
+        """The folded stem kernel and BN affine, computed once in f32."""
+        if self._stem_affine is None:
+            self._stem_affine = stem_pool.folded_stem_affine(self.model.state_dict())
+        return self._stem_affine
+
+    def patch_forward(self, flat: torch.Tensor) -> dict:
+        """Forward a (N, d, d, 3) patch batch; 32×32 patches take the
+        fused stem."""
+        if flat.shape[1] == stem_pool.PATCH and flat.shape[2] == stem_pool.PATCH:
+            x_stem = stem_pool.stem_pool(flat, *self.stem_affine())
+            return self.model.from_stem(x_stem)
+        return self.model(flat)
+
+    def embed_grid(self, x_normalized, dim: int, stride: int):
+        """Window extraction (bf16) + forward → (outputs, B, P)."""
+        x = torch.as_tensor(x_normalized, dtype=torch.float32).to(self.device)
+        p = extract_patches(x.to(torch.bfloat16), dim=dim, stride=stride)
+        b, n = p.shape[0], p.shape[1]
+        return self.patch_forward(p.reshape((b * n,) + tuple(p.shape[2:]))), b, n
+
+    def predict_patches(self, x_normalized, dim: int = 32, stride: int = 8):
+        """(B, H, W, 3) → (logits (B·P, C), embeddings (B·P, D), P), rows
+        in row-major window order per image."""
+        with torch.inference_mode():
+            out, _, n = self.embed_grid(x_normalized, dim, stride)
+        return out["classifier"], out["latent_space"], n
+
+    def score_patch_maps(
+        self,
+        x_normalized,
+        bank: torch.Tensor,
+        dim: int = 32,
+        stride: int = 8,
+        k: int = 3,
+        upsample_to: Optional[int] = None,
+    ) -> torch.Tensor:
+        """(B, side, side) k-NN anomaly maps, or (B, upsample_to,
+        upsample_to) blurred and upsampled ones."""
+        with torch.inference_mode():
+            out, b, n = self.embed_grid(x_normalized, dim, stride)
+            scores = knn_cosine_scores(out["latent_space"], bank, k=k)
+            side = int(round(n ** 0.5))
+            maps = scores.reshape(b, side, side)
+            if upsample_to is not None:
+                maps = im.upsample_anomaly_maps(maps, upsample_to)
+        return maps
 
 
 def pad_to_batch(x: torch.Tensor, batch_size: int) -> Tuple[torch.Tensor, int]:
@@ -57,10 +118,14 @@ def normality_embeddings(
     min_bank_rows: int = 100,
     max_images: Optional[int] = None,
     seed: int = 0,
+    patch_localization: bool = False,
+    patch_dim: int = 32,
+    stride: int = 8,
 ) -> torch.Tensor:
     """The bank's rows (newest first) when it holds at least
     ``min_bank_rows``, else embeddings of the raw [0,1] ``train_images``
-    (a seeded random sample of ``max_images`` of them when capped)."""
+    (a seeded random sample of ``max_images`` of them when capped): one
+    row per image, or with ``patch_localization`` one row per window."""
     if bank is not None and int(bank.count) >= min_bank_rows:
         return newest_first(bank).to(engine.device)
     if train_images is None:
@@ -75,8 +140,13 @@ def normality_embeddings(
     for lo in range(0, images.shape[0], batch_size):
         raw = torch.as_tensor(np.asarray(images[lo : lo + batch_size], np.float32))
         raw, b = pad_to_batch(raw.to(engine.device), batch_size)
-        _, emb = engine.predict_batch(im.normalize_imagenet(raw))
-        embs.append(emb[:b])
+        xn = im.normalize_imagenet(raw)
+        if patch_localization:
+            _, emb, per_image = engine.predict_patches(xn, patch_dim, stride)
+            embs.append(emb[: b * per_image])
+        else:
+            _, emb = engine.predict_batch(xn)
+            embs.append(emb[:b])
     return torch.cat(embs, dim=0)
 
 

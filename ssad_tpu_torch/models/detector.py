@@ -5,7 +5,8 @@ normality embeddings 70/30, keeps the 70% as the bank and calibrates the
 threshold on the 30%: the max validation score (the reference's rule,
 models.py:352-361) or its .99 quantile.  Scoring goes through
 ops/knn.py, so on a CUDA tensor both the fit and predict launch the
-k-NN kernel.
+k-NN kernel for the bank's size (csrc/knn.cu up to 1024 rows,
+csrc/knn_tiled.cu above).
 
 The JAX split permutation comes from ``jax.random``; here it comes from
 a ``torch.Generator`` — or from an explicit ``perm``, which is how the
@@ -25,7 +26,8 @@ from ssad_tpu_torch.ops.knn import knn_cosine_scores
 @dataclasses.dataclass
 class AnomalyDetector:
     """k-NN cosine anomaly scorer (image level; the patch-map reshape of
-    the JAX detector waits for the patch slice)."""
+    the JAX detector waits for the evaluation slice; the patch path
+    reshapes its scores itself, evaluation/inference.py)."""
 
     k: int = 3
     #: 'max' (the reference rule) or 'quantile' (.99 quantile)

@@ -12,10 +12,12 @@ state-dict layout (models.py:58-99), so a reference Lightning
 
 Images enter as (B, H, W, 3) float32 — the JAX package's public layout —
 and are moved to NCHW here.  Inputs under 64 px are nearest-upsampled to
-64 first (models.py:218-219); the JAX package folds that upsample into a
-4×4 stem for 32×32 patches, which is the same function and waits for the
-patch slice.  The backbone runs in ``compute_dtype``; the taps are
-averaged in f32 and the head runs in f32.
+64 first (models.py:218-219), except exactly 32×32 ones, which take the
+folded 4×4 stem: the same function without the 4× upsampled image
+(ssad_tpu/models/peranet.py:73-87).  ``from_stem`` re-enters after the
+stem's maxpool, for the fused stem kernel (ops/stem_pool.py).  The
+backbone runs in ``compute_dtype``; the taps are averaged in f32 and the
+head runs in f32.
 """
 
 from __future__ import annotations
@@ -70,10 +72,18 @@ class PeraNet(nn.Module):
 
     def backbone_features(self, x: torch.Tensor):
         """(B, H, W, 3) → (pooled (B, 512), {'layer1'..'layer4': NCHW})."""
+        if x.shape[1] == 32 and x.shape[2] == 32:
+            return self.feature_extractor(x.permute(0, 3, 1, 2), stem_fold_2x=True)
         if x.shape[1] < 64 or x.shape[2] < 64:
             # resize_nearest works on leading (H, W) axes: (B,H,W,C) → (H,W,B,C)
             x = resize_nearest(x.permute(1, 2, 0, 3), (64, 64)).permute(2, 0, 1, 3)
         return self.feature_extractor(x.permute(0, 3, 1, 2))
+
+    def from_stem(self, x_stem: torch.Tensor) -> Dict[str, torch.Tensor]:
+        """Forward from a post-maxpool stem output (B, h, w, 64), channels
+        last as the fused stem writes it; the NCHW view is not copied."""
+        pooled, feats = self.feature_extractor.forward_stages(x_stem.permute(0, 3, 1, 2))
+        return self.head(feats, pooled)
 
     def head(self, feats: Dict[str, torch.Tensor], pooled: torch.Tensor):
         """Tap means + pooled features → concat head → latent MLP →

@@ -1,8 +1,10 @@
 """ResNet-18 backbone returning the pooled features and the stage taps.
 
-Counterpart of ssad_tpu/models/resnet.py:25-133, :178-258 with the plain
-7×7/stride-2 stem.  Module and parameter names are torchvision's, so a
-reference ``feature_extractor.*`` state dict loads with ``strict=True``.
+Counterpart of ssad_tpu/models/resnet.py:25-133, :178-258: the 7×7/s2
+stem, its folded 4×4/s1 form for 32×32 inputs (``fold_2x``), and
+``forward_stages``, the re-entry point after the stem's maxpool.  Module
+and parameter names are torchvision's, so a reference
+``feature_extractor.*`` state dict loads with ``strict=True``.
 
 Precision follows the JAX model.  With ``compute_dtype=bfloat16`` the
 convolutions take bf16 inputs and weights (the weights stay f32
@@ -18,6 +20,8 @@ from typing import Dict, Tuple
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from ssad_tpu_torch.ops.stem_pool import fold_stem_kernel
 
 #: output channels of each stage
 STAGE_CHANNELS = {"layer1": 64, "layer2": 128, "layer3": 256, "layer4": 512}
@@ -105,10 +109,33 @@ class ResNet(nn.Module):
                 cin = cout
             setattr(self, f"layer{stage}", nn.Sequential(*layer))
 
-    def forward(self, x: torch.Tensor) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    def folded_stem_weight(self) -> torch.Tensor:
+        """The 4×4/s1 kernel equal to nearest-×2 upsampling followed by the
+        7×7/s2 stem (w' = [w0, w1+w2, w3+w4, w5+w6] per spatial axis),
+        summed in f32 from the same parameter
+        (ssad_tpu/models/resnet.py:54-65)."""
+        w = self.conv1.weight.float().permute(2, 3, 1, 0)  # OIHW → HWIO
+        return fold_stem_kernel(w).permute(3, 2, 0, 1)
+
+    def forward(
+        self, x: torch.Tensor, stem_fold_2x: bool = False
+    ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+        """NCHW images → (pooled, taps).  ``stem_fold_2x`` runs the folded
+        stem on 32×32 inputs: 4×4/s1 with padding (2, 1)."""
         x = x.to(self.compute_dtype)
-        x = F.relu(self.bn1(self.conv1(x)))
+        if stem_fold_2x:
+            w = self.folded_stem_weight().to(x.dtype)
+            x = F.conv2d(F.pad(x, (2, 1, 2, 1)), w)
+        else:
+            x = self.conv1(x)
+        x = F.relu(self.bn1(x))
         x = F.max_pool2d(x, 3, 2, 1)  # implicit −inf padding, as in Flax
+        return self.forward_stages(x)
+
+    def forward_stages(self, x: torch.Tensor) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+        """layer1..layer4 and the global pool from the stem's pooled
+        output (NCHW; a channels-last view of NHWC data is taken as is)."""
+        x = x.to(self.compute_dtype)
         feats: Dict[str, torch.Tensor] = {}
         for stage in range(1, 5):
             x = getattr(self, f"layer{stage}")(x)

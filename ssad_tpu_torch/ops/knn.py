@@ -1,48 +1,55 @@
 """Batched k-NN cosine scoring: mean of the k smallest cosine distances.
 
 Counterpart of ssad_tpu/ops/knn.py (l2_normalize, knn_cosine_scores_xla,
-the resident Pallas kernel and the dispatch).  For unit vectors the
-cosine distance is 1 − q·b, so the score is 1 − mean(top-k similarity).
+both Pallas kernels and the dispatch).  For unit vectors the cosine
+distance is 1 − q·b, so the score is 1 − mean(top-k similarity).
 
-* ``knn_cosine_scores_cuda`` launches the Hopper kernel of csrc/knn.cu
-  (replacing the resident TPU kernel ``_knn_kernel``), for CUDA tensors.
-* ``knn_cosine_scores_plain`` is the same function in plain PyTorch: an
-  f32 matmul with TF32 off, then ``torch.topk``.  It serves CPU tensors,
-  and the tests and the on-card check hold the kernel against it.
-* ``knn_cosine_scores`` dispatches on the tensors' device.  There is no
-  fallback: on a CUDA tensor the kernel runs or the call raises.
+Two functions, as in the JAX package, chosen by bank size:
+
+* banks of at most ``PALLAS_MAX_BANK_ROWS`` rows: IEEE f32 similarities.
+  ``knn_cosine_scores_cuda`` launches csrc/knn.cu (replacing the
+  resident TPU kernel ``_knn_kernel``); ``knn_cosine_scores_plain`` is an
+  f32 matmul with TF32 off, then ``torch.topk``.
+* larger banks: bf16x3 similarities (each unit vector split into a
+  bit-masked bf16 hi/lo pair, qh·bh + qh·bl + ql·bh in f32).
+  ``knn_cosine_scores_tiled_cuda`` launches csrc/knn_tiled.cu (replacing
+  the streaming TPU kernel ``_knn_tiled_kernel``);
+  ``knn_cosine_scores_tiled_plain`` is three f32 matmuls with TF32 off,
+  then ``torch.topk``.
+
+The plain versions serve CPU tensors, and the tests and the on-card check
+hold each kernel against its plain version.  ``knn_cosine_scores``
+dispatches on the bank's size and the tensors' device; there is no
+fallback: on a CUDA tensor a kernel runs or the call raises.
 
 Scores stay f32 everywhere: they are 1 − cos with cos close to 1.
 """
 
 from __future__ import annotations
 
-import contextlib
 import ctypes
 
 import torch
 
 from ssad_tpu_torch.ops import _cuda
+from ssad_tpu_torch.utils.device import tf32_off
 
-#: the kernel template covers 1 ≤ k ≤ MAX_K
+#: the kernel templates cover 1 ≤ k ≤ MAX_K
 MAX_K = 8
 _QUERIES_PER_BLOCK = 8  # csrc/knn.cu kQueriesPerBlock
 _WARPS = 8  # csrc/knn.cu kWarps
+_TILE_Q = 128  # csrc/knn_tiled.cu kBQ
+_TILE_M = 128  # csrc/knn_tiled.cu kBM
+_TILE_D = 32  # csrc/knn_tiled.cu kBK: the depth is zero-padded to a multiple
+
+#: banks above this many rows take the bf16x3 streaming function (the
+#: JAX package's resident↔tiled crossover, ssad_tpu/ops/knn.py:329)
+PALLAS_MAX_BANK_ROWS = 1024
 
 
 def l2_normalize(x: torch.Tensor, dim: int = -1, eps: float = 1e-12) -> torch.Tensor:
     n = torch.sqrt(torch.sum(x * x, dim=dim, keepdim=True))
     return x / torch.clamp(n, min=eps)
-
-
-@contextlib.contextmanager
-def _tf32_off():
-    prev = torch.backends.cuda.matmul.allow_tf32
-    torch.backends.cuda.matmul.allow_tf32 = False
-    try:
-        yield
-    finally:
-        torch.backends.cuda.matmul.allow_tf32 = prev
 
 
 def _check_args(queries: torch.Tensor, bank: torch.Tensor, k: int) -> None:
@@ -60,7 +67,7 @@ def knn_cosine_scores_plain(queries: torch.Tensor, bank: torch.Tensor, k: int = 
     _check_args(queries, bank, k)
     q = l2_normalize(queries.to(torch.float32))
     b = l2_normalize(bank.to(torch.float32))
-    with _tf32_off():
+    with tf32_off():
         sims = q @ b.T
     top = torch.topk(sims, k, dim=1).values
     return 1.0 - top.mean(dim=1)
@@ -118,11 +125,106 @@ def _kernel_fn():
     return fn
 
 
+def split_bf16x2(x: torch.Tensor):
+    """f32 → (hi, lo) bf16 pair with hi + lo ≈ x to ~2⁻¹⁶ relative: hi is
+    x with the low 16 bits of its pattern cleared (exact in bf16), lo is
+    bf16(x − hi), where x − hi is exact in f32 (ssad_tpu/ops/knn.py:149)."""
+    x = x.to(torch.float32).contiguous()
+    hi = (x.view(torch.int32) & -65536).view(torch.float32)
+    return hi.to(torch.bfloat16), (x - hi).to(torch.bfloat16)
+
+
+def knn_cosine_scores_tiled_plain(queries: torch.Tensor, bank: torch.Tensor,
+                                  k: int = 3) -> torch.Tensor:
+    """Plain PyTorch version of the bf16x3 function: (N, D), (M, D) →
+    (N,) f32 scores."""
+    _check_args(queries, bank, k)
+    qh, ql = (t.float() for t in split_bf16x2(l2_normalize(queries.to(torch.float32))))
+    bh, bl = (t.float() for t in split_bf16x2(l2_normalize(bank.to(torch.float32))))
+    with tf32_off():
+        sims = qh @ bh.T
+        sims += qh @ bl.T
+        sims += ql @ bh.T
+    top = torch.topk(sims, k, dim=1).values
+    return 1.0 - top.mean(dim=1)
+
+
+def _split_padded(x: torch.Tensor):
+    """Normalise, split and zero-pad the depth to a multiple of _TILE_D."""
+    hi, lo = split_bf16x2(l2_normalize(x.to(torch.float32)))
+    pad = -x.shape[1] % _TILE_D
+    if pad:
+        hi = torch.nn.functional.pad(hi, (0, pad))
+        lo = torch.nn.functional.pad(lo, (0, pad))
+    return hi.contiguous(), lo.contiguous()
+
+
+def _tiled_splits(n: int, m: int, device: torch.device):
+    """(bank tiles per split, splits): about eight waves of two blocks
+    per SM over the (query tiles × splits) grid."""
+    q_tiles = -(-n // _TILE_Q)
+    m_tiles = -(-m // _TILE_M)
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    want = max(1, min(m_tiles, -(-16 * sms // q_tiles)))
+    per_split = -(-m_tiles // want)
+    return per_split, -(-m_tiles // per_split)
+
+
+def knn_cosine_scores_tiled_cuda(queries: torch.Tensor, bank: torch.Tensor,
+                                 k: int = 3) -> torch.Tensor:
+    """Launch the CUDA kernel (csrc/knn_tiled.cu) on the current stream.
+    The normalisation and the bf16 split run as torch ops first, as the
+    JAX package runs them in XLA outside its kernel."""
+    _check_args(queries, bank, k)
+    if queries.device.type != "cuda" or bank.device != queries.device:
+        raise ValueError(
+            f"knn_cosine_scores_tiled_cuda needs both tensors on one CUDA device, "
+            f"got {queries.device} and {bank.device}"
+        )
+    if k > MAX_K:
+        raise ValueError(f"the CUDA kernel takes 1 <= k <= {MAX_K}, got k={k}")
+    n, m = queries.shape[0], bank.shape[0]
+    out = torch.empty(n, dtype=torch.float32, device=queries.device)
+    if n == 0:
+        return out
+    qh, ql = _split_padded(queries)
+    bh, bl = _split_padded(bank)
+    per_split, splits = _tiled_splits(n, m, queries.device)
+    partial = torch.empty((n, splits, k), dtype=torch.float32, device=queries.device)
+    fn = _tiled_kernel_fn()
+    stream = torch.cuda.current_stream(queries.device).cuda_stream
+    with torch.cuda.device(queries.device):
+        status = fn(
+            qh.data_ptr(), ql.data_ptr(), bh.data_ptr(), bl.data_ptr(),
+            partial.data_ptr(), out.data_ptr(), n, m, qh.shape[1], k, per_split, splits, stream,
+        )
+    _cuda.check(status, "knn_cosine_scores_tiled_cuda")
+    knn_cosine_scores_tiled_cuda.launches += 1
+    return out
+
+
+#: launches of the CUDA kernel since the last reset (one per call)
+knn_cosine_scores_tiled_cuda.launches = 0
+
+
+def _tiled_kernel_fn():
+    fn = _cuda.load("knn_tiled").ssad_knn_tiled_scores
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+    return fn
+
+
 def knn_cosine_scores(queries: torch.Tensor, bank: torch.Tensor, k: int = 3) -> torch.Tensor:
-    """CUDA tensors → the kernel; CPU tensors → the plain version."""
+    """By bank size (≤ PALLAS_MAX_BANK_ROWS: f32; above: bf16x3), then by
+    device: CUDA tensors → the kernel; CPU tensors → the plain version."""
+    tiled = bank.shape[0] > PALLAS_MAX_BANK_ROWS
     if queries.device.type == "cuda":
+        if tiled:
+            return knn_cosine_scores_tiled_cuda(queries, bank, k=k)
         return knn_cosine_scores_cuda(queries, bank, k=k)
     if queries.device.type == "cpu" and bank.device.type == "cpu":
+        if tiled:
+            return knn_cosine_scores_tiled_plain(queries, bank, k=k)
         return knn_cosine_scores_plain(queries, bank, k=k)
     raise ValueError(
         f"queries on {queries.device} and bank on {bank.device}: "

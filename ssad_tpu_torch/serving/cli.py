@@ -3,10 +3,10 @@
 Counterpart of ssad_tpu/serving/cli.py (cmd_export :39, cmd_serve :208,
 cmd_score :334, the flags at :658-741) with ``--device`` added: the
 commands run on the CUDA device unless ``--device cpu`` is given, and
-fail with a clear message when there is no card.  The JAX CLI's
-quantized/patch/Mahalanobis exports, ``serve-bench``,
-``evaluate-artifact``, remote ``score --url``, replicas and the native
-front end wait for later slices.
+fail with a clear message when there is no card.  Image and patch (k-NN)
+artifacts are ported; the JAX CLI's quantized and Mahalanobis exports,
+``--coreset``, ``serve-bench``, ``evaluate-artifact``, remote
+``score --url``, replicas and the native front end wait for later slices.
 """
 
 from __future__ import annotations
@@ -36,7 +36,9 @@ def cmd_export(args) -> int:
         ckpt, out, mode=args.mode, batch=args.batch,
         imsize=(args.imsize, args.imsize) if args.imsize else None,
         k=args.knn_k, seed=args.seed, subject=args.subject, device=device,
-        allow_pickle=args.allow_pickle,
+        allow_pickle=args.allow_pickle, dataset_dir=args.dataset_dir,
+        n_normality_images=args.n_normality_images, patch_dim=args.patch_dim,
+        stride=args.stride,
     )
     print(json.dumps({
         "artifact": path,
@@ -131,19 +133,25 @@ def _collect_images(items) -> list:
 
 def cmd_score(args) -> int:
     """Offline scoring of image files/folders with an artifact: writes
-    scores.csv as each chunk completes and prints one JSON summary."""
+    scores.csv as each chunk completes (path,score,label; for a patch
+    artifact path,map_max,map_mean and, with --heatmaps, one grayscale
+    PNG per image) and prints one JSON summary."""
     import csv
 
     import numpy as np
+    from PIL import Image
 
     from ssad_tpu_torch.data.mvtec import load_image
     from ssad_tpu_torch.serving.export import load_scorer
-    from ssad_tpu_torch.serving.server import coerce_image_array
+    from ssad_tpu_torch.serving.server import coerce_image_array, heatmap_to_uint8
     from ssad_tpu_torch.utils.device import resolve_device
 
     device = resolve_device(args.device)
     scorer = load_scorer(args.artifact, device)
     h, w = scorer.meta["imsize"]
+    mode = scorer.meta.get("mode", "image")
+    if args.heatmaps and mode != "patch":
+        raise SystemExit("--heatmaps needs a patch-mode artifact")
     paths = _collect_images(args.images)
 
     def load_any(p: Path) -> np.ndarray:
@@ -154,27 +162,46 @@ def cmd_score(args) -> int:
 
     out_dir = Path(args.out)
     out_dir.mkdir(parents=True, exist_ok=True)
+    heat_dir = None
+    if args.heatmaps:
+        heat_dir = out_dir / "heatmaps"
+        heat_dir.mkdir(exist_ok=True)
     csv_path = out_dir / "scores.csv"
     n_rows = n_anomalous = 0
     with open(csv_path, "w", newline="") as f:
         wr = csv.writer(f)
-        wr.writerow(["path", "score", "label"])
+        wr.writerow(["path", "map_max", "map_mean"] if mode == "patch"
+                    else ["path", "score", "label"])
         for lo in range(0, len(paths), args.chunk):
             batch_paths = paths[lo : lo + args.chunk]
-            scores, labels, _ = scorer(np.stack([load_any(p) for p in batch_paths]))
-            n_anomalous += int(labels.sum())
-            for p, s, y in zip(batch_paths, scores, labels):
-                wr.writerow([str(p), float(s), int(y)])
+            results = scorer(np.stack([load_any(p) for p in batch_paths]))
+            if mode == "patch":
+                for i, (p, m) in enumerate(zip(batch_paths, results[0])):
+                    wr.writerow([str(p), float(m.max()), float(m.mean())])
+                    if heat_dir is not None:
+                        # the index prefix keeps equal stems of different folders apart
+                        Image.fromarray(heatmap_to_uint8(m)).save(
+                            heat_dir / f"{lo + i:05d}_{p.stem}.png"
+                        )
+            else:
+                scores, labels = results[0], results[1]
+                n_anomalous += int(labels.sum())
+                for p, s, y in zip(batch_paths, scores, labels):
+                    wr.writerow([str(p), float(s), int(y)])
             n_rows += len(batch_paths)
             f.flush()
-    print(json.dumps({
-        "mode": scorer.meta.get("mode", "image"),
+    summary = {
+        "mode": mode,
         "n": n_rows,
         "csv": str(csv_path),
         "threshold": scorer.meta.get("threshold"),
-        "n_anomalous": n_anomalous,
         "device": str(device),
-    }))
+    }
+    if mode == "image":
+        summary["n_anomalous"] = n_anomalous
+    if heat_dir is not None:
+        summary["heatmaps"] = str(heat_dir)
+    print(json.dumps(summary))
     return 0
 
 
@@ -186,8 +213,17 @@ def register(sub) -> None:
     ex.add_argument("--out", default=None,
                     help="artifact path (default: "
                          "<models-dir>/<subject>/<subject>_<mode>.ssadpt)")
-    ex.add_argument("--mode", default="image", choices=["image"],
-                    help="image-level scoring (patch mode waits for a later slice)")
+    ex.add_argument("--mode", default="image", choices=["image", "patch"],
+                    help="image-level scores, or patch-level anomaly maps")
+    ex.add_argument("--dataset-dir", default=None,
+                    help="MVTec root, required for --mode patch: patch normality "
+                         "is re-embedded from <dataset-dir>/<subject>/train/good "
+                         "(the checkpoint's bank holds whole-image embeddings)")
+    ex.add_argument("--n-normality-images", type=int, default=None,
+                    help="cap the training images embedded for patch normality "
+                         "(a seeded sample; default: all)")
+    ex.add_argument("--patch-dim", type=int, default=32)
+    ex.add_argument("--stride", type=int, default=8)
     ex.add_argument("--batch", type=int, default=8,
                     help="fixed serving batch the scorer pads to")
     ex.add_argument("--imsize", type=int, default=None,
@@ -225,5 +261,8 @@ def register(sub) -> None:
                     help="output directory for scores.csv")
     sc.add_argument("--chunk", type=int, default=64,
                     help="images decoded/held on host per scoring call")
+    sc.add_argument("--heatmaps", action="store_true",
+                    help="patch artifacts: also write one grayscale PNG per map "
+                         "under <out>/heatmaps")
     _add_device(sc)
     sc.set_defaults(fn=cmd_score)

@@ -12,7 +12,9 @@ the scorer once and fans the rows back out.
   POST /score[/<name>]  body: raw .npy (H, W, 3) — float in [0,1] or
                  uint8 (rescaled) — or any image file PIL can decode
                  (resized to the model's geometry) → JSON {score, label,
-                 threshold, logits, ms}
+                 threshold, logits, ms}; for a patch-mode artifact
+                 {map_max, map_mean, ms}, plus heatmap_b64 (a grayscale
+                 PNG of the map) with ?heatmap=1
   GET  /healthz  → {"ok": true, "mode": ...} (liveness)
   GET  /readyz   → {"ready": true} or 503: a zero image actually scores
                  through every batcher (readiness)
@@ -266,7 +268,42 @@ def build_stats(models: dict, trackers: dict) -> dict:
     return {**sc.stats(), "scores": trackers[name].stats()}
 
 
-def build_score_payload(result, meta: dict, ms: float) -> dict:
+def heatmap_to_uint8(amap: np.ndarray) -> np.ndarray:
+    """Min-max normalise an anomaly map to a uint8 grayscale image: the one
+    rendering shared by ``?heatmap=1`` and ``cli score --heatmaps``."""
+    lo, hi = float(amap.min()), float(amap.max())
+    norm = (amap - lo) / (hi - lo + 1e-12)
+    return (norm * 255).astype(np.uint8)
+
+
+def _heatmap_png_b64(amap: np.ndarray) -> str:
+    import base64
+
+    from PIL import Image
+
+    buf = io.BytesIO()
+    Image.fromarray(heatmap_to_uint8(amap)).save(buf, format="PNG")
+    return base64.b64encode(buf.getvalue()).decode("ascii")
+
+
+def want_heatmap(query: str) -> bool:
+    from urllib.parse import parse_qs
+
+    return parse_qs(query).get("heatmap", ["0"])[0] == "1"
+
+
+def build_score_payload(result, meta: dict, want_heatmap: bool, ms: float) -> Tuple[dict, float]:
+    """(response payload, the scalar the drift tracker observes)."""
+    if meta.get("mode") == "patch":
+        amap = np.asarray(result[0])
+        payload = {
+            "map_max": float(amap.max()),
+            "map_mean": float(amap.mean()),
+            "ms": round(ms, 3),
+        }
+        if want_heatmap:
+            payload["heatmap_b64"] = _heatmap_png_b64(amap)
+        return payload, payload["map_max"]
     score, label = result[0], result[1]
     payload = {
         "score": float(score),
@@ -276,7 +313,7 @@ def build_score_payload(result, meta: dict, ms: float) -> dict:
     }
     if len(result) > 2:
         payload["logits"] = np.asarray(result[2]).tolist()
-    return payload
+    return payload, payload["score"]
 
 
 class AnomalyHTTPServer:
@@ -346,7 +383,7 @@ class AnomalyHTTPServer:
                     self._json(404, {"error": f"no route {self.path}"})
 
             def do_POST(self):
-                path = self.path.partition("?")[0]
+                path, _, query = self.path.partition("?")
                 # Content-Length framing only: an undrained chunked body
                 # would desync the keep-alive socket — reject and close
                 if "chunked" in (self.headers.get("Transfer-Encoding") or "").lower():
@@ -384,10 +421,10 @@ class AnomalyHTTPServer:
                 try:
                     t0 = time.perf_counter()
                     result = scorer.score(image, timeout=outer.score_timeout)
-                    payload = build_score_payload(
-                        result, meta, (time.perf_counter() - t0) * 1e3
+                    payload, observed = build_score_payload(
+                        result, meta, want_heatmap(query), (time.perf_counter() - t0) * 1e3
                     )
-                    outer.trackers[name].observe(payload["score"])
+                    outer.trackers[name].observe(observed)
                     self._json(200, payload)
                 except Overloaded as e:
                     self._json(503, {"error": repr(e)})

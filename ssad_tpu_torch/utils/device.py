@@ -1,4 +1,5 @@
-"""Device resolution shared by every entry point of the port.
+"""Device resolution shared by every entry point of the port, and the
+switch that keeps f32 matmuls IEEE f32 on the card.
 
 The port runs on the CUDA device by default.  The CPU is reached only by
 asking for it; a missing card never degrades silently to the CPU, because
@@ -8,9 +9,23 @@ no sign of why.
 
 from __future__ import annotations
 
+import contextlib
 from typing import Optional, Union
 
 import torch
+
+
+@contextlib.contextmanager
+def tf32_off():
+    """Run f32 matmuls without TF32 inside the block (the k-NN scores and
+    the anomaly maps are 1 − cos with cos close to 1; the stem's plain
+    version must sum exact bf16 products in f32)."""
+    prev = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev
 
 
 class DeviceUnavailable(RuntimeError):

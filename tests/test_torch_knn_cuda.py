@@ -2,6 +2,10 @@
 PyTorch version, on the card.  Every test here takes the ``cuda_device``
 fixture and skips where there is no card.
 
+``_check`` calls the resident kernel's wrapper itself, so the kernel is
+tested at any bank size; through ``knn_cosine_scores`` a bank above
+1024 rows takes the tiled kernel (tests/test_torch_patch_cuda.py).
+
 This file imports neither JAX nor the JAX package, so it also runs on a
 machine without them:  python -m pytest --noconftest tests/test_torch_knn_cuda.py
 Tolerance 1e-5 absolute: both sides compute f32 sims without TF32; the
@@ -25,7 +29,7 @@ def _data(device, n, m, d, seed):
 
 def _check(q, b, k):
     before = knn.knn_cosine_scores_cuda.launches
-    out = knn.knn_cosine_scores(q, b, k=k)
+    out = knn.knn_cosine_scores_cuda(q, b, k=k)
     torch.cuda.synchronize()
     assert knn.knn_cosine_scores_cuda.launches == before + 1
     ref = knn.knn_cosine_scores_plain(q, b, k=k)
@@ -53,6 +57,21 @@ def test_duplicate_rows_and_near_neighbours(cuda_device):  # noqa: F811
 
 def test_wide_rows_take_the_large_shared_memory_path(cuda_device):  # noqa: F811
     _check(*_data(cuda_device, 9, 64, 2048, 3), 3)  # 8 × 2048 × 4 B > 48 KB
+
+
+def test_banks_above_1024_rows_dispatch_to_the_tiled_kernel(cuda_device):  # noqa: F811
+    q, b = _data(cuda_device, 8, 4096, 512, 6)
+    resident = knn.knn_cosine_scores_cuda.launches
+    tiled = knn.knn_cosine_scores_tiled_cuda.launches
+    knn.knn_cosine_scores(q, b, k=3)
+    torch.cuda.synchronize()
+    assert knn.knn_cosine_scores_tiled_cuda.launches == tiled + 1
+    assert knn.knn_cosine_scores_cuda.launches == resident
+    # a bank of exactly 1024 rows stays on the resident kernel
+    knn.knn_cosine_scores(q, b[: knn.PALLAS_MAX_BANK_ROWS], k=3)
+    torch.cuda.synchronize()
+    assert knn.knn_cosine_scores_cuda.launches == resident + 1
+    assert knn.knn_cosine_scores_tiled_cuda.launches == tiled + 1
 
 
 def test_empty_queries_and_bad_k(cuda_device):  # noqa: F811

@@ -52,9 +52,18 @@ def test_peranet_eval_matches_jax(compute_dtype, tol):
 
 
 def test_small_inputs_are_upsampled_like_jax():
-    """32×32 inputs: JAX folds the nearest ×2 upsample into a 4×4 stem,
-    the port upsamples and runs the plain stem — the same function."""
+    """32×32 inputs take the folded 4×4 stem in both packages: the nearest
+    ×2 upsample folded into the weights."""
     ref, out = _both("float32", seeded((2, 32, 32, 3), 5))
+    np.testing.assert_allclose(
+        out["latent_space"].numpy(), np.asarray(ref["latent_space"]), rtol=1e-5, atol=1e-5
+    )
+
+
+def test_other_small_inputs_are_upsampled_like_jax():
+    """Other sizes under 64 px are nearest-upsampled to 64 and take the
+    7×7 stem in both packages."""
+    ref, out = _both("float32", seeded((2, 48, 48, 3), 5))
     np.testing.assert_allclose(
         out["latent_space"].numpy(), np.asarray(ref["latent_space"]), rtol=1e-5, atol=1e-5
     )
