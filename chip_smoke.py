@@ -14,11 +14,17 @@ failure; the script exits 0 only when all pass):
    register and spill lines.
 2. Hold each kernel against its plain PyTorch version on the card (TF32
    off) at its paths' shapes, and time kernel, plain version and a
-   library yardstick beside the card's bound:
-   * the resident k-NN kernel, max |Δ| ≤ 1e-5;
-   * the fused stem at N ∈ {6728, 841, 9, 1} patches, rtol 2⁻⁷ /
-     atol 1e-6 (one bf16 ulp) with fewer than 1e-3 of the elements not
-     bit-equal;
+   library yardstick beside the card's bound; at the main shapes also
+   the profiler's device µs per call and the blocks resident per SM:
+   * the resident k-NN kernel (one launch: a thread-block cluster per
+     query tile spreads the bank over up to 16 CTAs, each an 8×8
+     register tile of IEEE f32 FMAs fed by cp.async; rank 0 merges the
+     CTAs' top-k lists through distributed shared memory), max |Δ| ≤
+     1e-5, at the request (8 × 700) and fit (300 × 700) shapes and more;
+   * the fused stem (the 4×4 conv as an mma.sync bf16 product in 8-row
+     bands kept in shared memory, four blocks per SM) at N ∈ {6728, 841,
+     9, 1} patches, rtol 2⁻⁷ / atol 1e-6 (one bf16 ulp) with fewer than
+     1e-3 of the elements not bit-equal;
    * the streaming bf16x3 k-NN kernel at the request (6728 × 29435) and
      fit (12615 × 29435) shapes, a ragged tile, duplicates across tiles
      and splits, and k = 1: max |Δ| ≤ 1e-5 against its plain version and
@@ -181,6 +187,26 @@ def cuda_ms(fn, iters: int = 200, warmup: int = 10, budget_s: float = 0.3) -> fl
     return start.elapsed_time(end) / iters
 
 
+def device_us(fn, match: str, calls: int = 50) -> float:
+    """The profiler's device time per call of the kernels whose name holds
+    ``match``, over ``calls`` back-to-back calls after a warmup."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(5):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA and match in e.name]
+    if not kernels:
+        fail(f"the profiler saw no device time for {match!r}")
+    return sum(e.time_range.end - e.time_range.start for e in kernels) / calls
+
+
 def knn_bound(n: int, m: int, d: int):
     """(bound_ms, bound_by): inputs read once + output written once over
     the HBM rate, vs the f32 dot products and norms over the FP32 rate."""
@@ -197,6 +223,7 @@ def check_knn_kernel(device):
     from ssad_tpu_torch.ops import knn
 
     gen = torch.Generator(device=device).manual_seed(0)
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
 
     def randn(*shape):
         return torch.randn(shape, generator=gen, device=device)
@@ -226,6 +253,13 @@ def check_knn_kernel(device):
             "library_ms": cuda_ms(lambda: torch.topk(qn @ bn.T, k, dim=1)),
         }
         rec["bound_ms"], rec["bound_by"] = knn_bound(q.shape[0], b.shape[0], q.shape[1])
+        if name in ("serve", "fit"):
+            plan = knn._plan(q.shape[0], b.shape[0], q.shape[1])
+            rec["device_us"] = device_us(lambda: knn.knn_cosine_scores_cuda(q, b, k=k), "knn_")
+            rec["plan"] = plan._asdict()
+            clusters = knn.knn_active_clusters(q.shape[0], b.shape[0], q.shape[1], device)
+            rec["resident_clusters"] = clusters
+            rec["resident_blocks_per_sm"] = clusters * plan.cluster / sms
         records[name] = rec
         print(f"knn {name}: {json.dumps(rec)}", flush=True)
     return records
@@ -284,6 +318,10 @@ def check_stem_kernel(device):
             "library_ms": cuda_ms(lambda: library(x)),
         }
         rec["bound_ms"], rec["bound_by"] = stem_bound(n)
+        if n == BATCH * WINDOWS:
+            rec["device_us"] = device_us(
+                lambda: stem_pool.stem_pool_cuda(x, k4, scale, bias), "stem_pool", 20)
+            rec["resident_blocks_per_sm"] = stem_pool.stem_blocks_per_sm(device)
         records[n] = rec
         print(f"stem N={n}: {json.dumps(rec)}", flush=True)
     return records
@@ -339,6 +377,8 @@ def check_tiled_kernel(device):
                                       warmup=2)
             rec["library_ms"] = cuda_ms(lambda: torch.topk(qn @ bn.T, k, dim=1), warmup=2)
             rec["bound_ms"], rec["bound_by"] = tiled_bound(q.shape[0], b.shape[0], q.shape[1])
+            rec["device_us"] = device_us(
+                lambda: knn.knn_cosine_scores_tiled_cuda(q, b, k=k), "knn_tiled", 10)
         records[name] = rec
         print(f"knn_tiled {name}: {json.dumps(rec)}", flush=True)
     return records
@@ -764,6 +804,8 @@ def main() -> int:
         "ms": serve["ms"], "plain_ms": serve["plain_ms"], "bound_ms": serve["bound_ms"],
         "bound_by": serve["bound_by"], "library_ms": serve["library_ms"],
         "shape": serve["shape"], "k": serve["k"], "path": "image",
+        "device_us": serve["device_us"], "fit_device_us": records["fit"]["device_us"],
+        "fit_ms": records["fit"]["ms"], "fit_library_ms": records["fit"]["library_ms"],
     }]
     tserve = tiled_records["serve"]
     kernels.append({
@@ -774,6 +816,7 @@ def main() -> int:
         "ms": tserve["ms"], "plain_ms": tserve["plain_ms"], "bound_ms": tserve["bound_ms"],
         "bound_by": tserve["bound_by"], "library_ms": tserve["library_ms"],
         "shape": tserve["shape"], "k": tserve["k"], "path": "patch",
+        "device_us": tserve["device_us"],
     })
     sserve = stem_records[BATCH * WINDOWS]
     kernels.append({
@@ -783,7 +826,8 @@ def main() -> int:
         "max_abs_err": max(r["max_abs_err"] for r in stem_records.values()),
         "ms": sserve["ms"], "plain_ms": sserve["plain_ms"], "bound_ms": sserve["bound_ms"],
         "bound_by": sserve["bound_by"], "library_ms": sserve["library_ms"],
-        "shape": sserve["shape"], "path": "patch",
+        "shape": sserve["shape"], "path": "patch", "device_us": sserve["device_us"],
+        "resident_blocks_per_sm": sserve["resident_blocks_per_sm"],
         "tolerance": "rtol 2^-7, atol 1e-6; < 1e-3 of elements not bit-equal",
         "flipped_share": max(r["flipped_share"] for r in stem_records.values()),
     })

@@ -10,9 +10,9 @@ bf16 backbone, seeded weights, k = 3, batch 8) and traces them with
 torch.profiler:
 
 * image mode (a 700-row f32 bank):
-  * ``knn``: device time per call of the resident k-NN kernel (its two
-    kernels summed) at the serving shape (8 × 700 × 512) and the fit
-    shape (300 × 700 × 512), beside the host-clock time per call;
+  * ``knn``: device time per call of the resident k-NN kernel at the
+    serving shape (8 × 700 × 512) and the fit shape (300 × 700 × 512),
+    beside the host-clock time per call;
   * ``served_batch``: one batch-8 ``ServedScorer`` call — wall time,
     device busy time, idle share, and device time by group (k-NN kernel,
     copies, the rest = the model) with the top kernels by time;

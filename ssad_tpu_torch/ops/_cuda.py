@@ -35,6 +35,7 @@ build_logs: Dict[str, str] = {}
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
+_fns: Dict[str, ctypes._CFuncPtr] = {}
 
 
 class KernelBuildError(RuntimeError):
@@ -99,6 +100,19 @@ def load(name: str) -> ctypes.CDLL:
             lib = ctypes.CDLL(str(build([name])[name]))
             _libs[name] = lib
         return lib
+
+
+def bind(name: str, symbol: str, argtypes) -> ctypes._CFuncPtr:
+    """The C function ``symbol`` of kernel ``name``, with its int return
+    type and ``argtypes`` set once, when it is first asked for."""
+    key = f"{name}:{symbol}"
+    fn = _fns.get(key)
+    if fn is None:
+        fn = getattr(load(name), symbol)
+        fn.restype = ctypes.c_int
+        fn.argtypes = list(argtypes)
+        _fns[key] = fn
+    return fn
 
 
 def check(status: int, what: str) -> None:

@@ -28,16 +28,20 @@ Scores stay f32 everywhere: they are 1 − cos with cos close to 1.
 from __future__ import annotations
 
 import ctypes
+import functools
+from typing import NamedTuple
 
 import torch
 
 from ssad_tpu_torch.ops import _cuda
 from ssad_tpu_torch.utils.device import tf32_off
 
-#: the kernel templates cover 1 ≤ k ≤ MAX_K
+#: the kernels take 1 ≤ k ≤ MAX_K
 MAX_K = 8
-_QUERIES_PER_BLOCK = 8  # csrc/knn.cu kQueriesPerBlock
-_WARPS = 8  # csrc/knn.cu kWarps
+MAX_CLUSTER = 16  # CTAs per query tile of csrc/knn.cu (non-portable cluster size)
+_CHUNK_ROWS = 48  # csrc/knn.cu kBM
+_STAGES = 3  # csrc/knn.cu kStages
+_PARTIAL_ROWS = 256  # csrc/knn.cu Tile<BQ>::KS * BQ: depth groups x queries
 _TILE_Q = 128  # csrc/knn_tiled.cu kBQ
 _TILE_M = 128  # csrc/knn_tiled.cu kBM
 _TILE_D = 32  # csrc/knn_tiled.cu kBK: the depth is zero-padded to a multiple
@@ -73,17 +77,44 @@ def knn_cosine_scores_plain(queries: torch.Tensor, bank: torch.Tensor, k: int = 
     return 1.0 - top.mean(dim=1)
 
 
-def _rows_per_split(n: int, m: int, device: torch.device) -> int:
-    """Bank rows per stage-1 block: about two blocks per SM in all, with
-    at least 4 rows per warp so the query staging stays amortised."""
-    tiles = -(-n // _QUERIES_PER_BLOCK)
-    sms = torch.cuda.get_device_properties(device).multi_processor_count
-    rows = max(4 * _WARPS, -(-m * tiles // (2 * sms)))
-    return -(-rows // _WARPS) * _WARPS
+class KnnPlan(NamedTuple):
+    """Launch plan of csrc/knn.cu: one cluster of ``cluster`` CTAs per
+    tile of ``query_tile`` queries, each CTA ``rows_per_cta`` bank rows."""
+
+    query_tile: int
+    cluster: int
+    rows_per_cta: int
+    tiles: int
+    smem_bytes: int  # dynamic + static shared memory per CTA
+
+
+@functools.lru_cache(maxsize=256)
+def _plan(n: int, m: int, d: int) -> KnnPlan:
+    """The launch plan for N queries against M bank rows of depth D.
+
+    The query tile follows N (the image path's request batch is 8, its
+    fit 300).  The bank goes across up to MAX_CLUSTER CTAs (at D = 512 a
+    700-row bank is 44 rows, 88 KB, per CTA); a share above one 48-row
+    chunk is rounded up to whole chunks.  D is streamed in slices, so
+    shared memory does not grow with it."""
+    if n < 1 or m < 1 or d < 1:
+        raise ValueError(f"empty k-NN problem: N={n}, M={m}, D={d}")
+    bq = 8 if n <= 8 else 16 if n <= 16 else 32
+    tiles = -(-n // bq)
+    rows = -(-m // MAX_CLUSTER)
+    if rows > _CHUNK_ROWS:
+        rows = -(-rows // _CHUNK_ROWS) * _CHUNK_ROWS
+    slice_depth = 8 * _PARTIAL_ROWS // bq  # Tile<BQ>::BK: 8 floats per depth group
+    stages = _STAGES * (bq + _CHUNK_ROWS) * (slice_depth + 4)
+    partial_sums = _PARTIAL_ROWS * (_CHUNK_ROWS + 1)  # aliases the stages
+    dynamic = 4 * max(stages, partial_sums)
+    static = 4 * (bq + _CHUNK_ROWS + MAX_CLUSTER * bq * MAX_K)
+    return KnnPlan(bq, -(-m // rows), rows, tiles, dynamic + static)
 
 
 def knn_cosine_scores_cuda(queries: torch.Tensor, bank: torch.Tensor, k: int = 3) -> torch.Tensor:
-    """Launch the CUDA kernel (csrc/knn.cu) on the current stream."""
+    """Launch the CUDA kernel (csrc/knn.cu) on the current stream: one
+    launch, nothing allocated but the (N,) output."""
     _check_args(queries, bank, k)
     if queries.device.type != "cuda" or bank.device != queries.device:
         raise ValueError(
@@ -92,23 +123,24 @@ def knn_cosine_scores_cuda(queries: torch.Tensor, bank: torch.Tensor, k: int = 3
         )
     if k > MAX_K:
         raise ValueError(f"the CUDA kernel takes 1 <= k <= {MAX_K}, got k={k}")
-    q = queries.to(torch.float32).contiguous()
-    b = bank.to(torch.float32).contiguous()
+    q, b = _f32_contiguous(queries), _f32_contiguous(bank)
     n, d = q.shape
     m = b.shape[0]
     out = torch.empty(n, dtype=torch.float32, device=q.device)
     if n == 0:
         return out
-    rows = _rows_per_split(n, m, q.device)
-    splits = -(-m // rows)
-    partial = torch.empty((n, splits, k), dtype=torch.float32, device=q.device)
-    fn = _kernel_fn()
-    stream = torch.cuda.current_stream(q.device).cuda_stream
-    with torch.cuda.device(q.device):
-        status = fn(
-            q.data_ptr(), b.data_ptr(), partial.data_ptr(), out.data_ptr(),
-            n, m, d, k, rows, splits, stream,
-        )
+    if d % 4 or q.data_ptr() % 16 or b.data_ptr() % 16:
+        # the kernel copies 16-byte pieces; zero columns change no dot product or norm
+        q = torch.nn.functional.pad(q, (0, -d % 4))
+        b = torch.nn.functional.pad(b, (0, -d % 4))
+        d = q.shape[1]
+    plan = _plan(n, m, d)
+    device = q.device.index if q.device.index is not None else torch.cuda.current_device()
+    status = _kernel_fn()(
+        q.data_ptr(), b.data_ptr(), out.data_ptr(), n, m, d, k,
+        plan.query_tile, plan.cluster, plan.rows_per_cta, device,
+        torch.cuda.current_stream(q.device).cuda_stream,
+    )
     _cuda.check(status, "knn_cosine_scores_cuda")
     knn_cosine_scores_cuda.launches += 1
     return out
@@ -118,11 +150,29 @@ def knn_cosine_scores_cuda(queries: torch.Tensor, bank: torch.Tensor, k: int = 3
 knn_cosine_scores_cuda.launches = 0
 
 
+def _f32_contiguous(x: torch.Tensor) -> torch.Tensor:
+    # skips two no-op calls per operand on the served path's host time
+    if x.dtype == torch.float32 and x.is_contiguous():
+        return x
+    return x.to(torch.float32).contiguous()
+
+
 def _kernel_fn():
-    fn = _cuda.load("knn").ssad_knn_cosine_scores
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
-    return fn
+    return _cuda.bind("knn", "ssad_knn_cosine_scores",
+                      [ctypes.c_void_p] * 3 + [ctypes.c_int] * 8 + [ctypes.c_void_p])
+
+
+def knn_active_clusters(n: int, m: int, d: int, device: torch.device) -> int:
+    """How many of the plan's clusters the card holds at once (the CUDA
+    occupancy calculator); for the on-card records."""
+    plan = _plan(n, m, d)
+    index = device.index if device.index is not None else torch.cuda.current_device()
+    fn = _cuda.bind("knn", "ssad_knn_occupancy",
+                    [ctypes.c_int] * 3 + [ctypes.POINTER(ctypes.c_int)])
+    active = ctypes.c_int(0)
+    _cuda.check(fn(plan.query_tile, plan.cluster, index, ctypes.byref(active)),
+                "knn_active_clusters")
+    return active.value
 
 
 def split_bf16x2(x: torch.Tensor):
@@ -208,10 +258,8 @@ knn_cosine_scores_tiled_cuda.launches = 0
 
 
 def _tiled_kernel_fn():
-    fn = _cuda.load("knn_tiled").ssad_knn_tiled_scores
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
-    return fn
+    return _cuda.bind("knn_tiled", "ssad_knn_tiled_scores",
+                      [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [ctypes.c_void_p])
 
 
 def knn_cosine_scores(queries: torch.Tensor, bank: torch.Tensor, k: int = 3) -> torch.Tensor:

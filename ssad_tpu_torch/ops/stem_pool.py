@@ -9,8 +9,9 @@ mode, so it is the affine ``y·scale' + bias'``.  The 3×3/s2/pad-1 maxpool
 of post-ReLU values may pad with zeros.
 
 * ``stem_pool_cuda`` launches the Hopper kernel of csrc/stem_pool.cu
-  (replacing the TPU kernel ``_stem_pool_kernel``), for CUDA tensors.
-  The 32×32×64 conv output of a patch stays in shared memory.
+  (replacing the TPU kernel ``_stem_pool_kernel``), for CUDA tensors: the
+  conv as a bf16 tensor-core product, in row bands whose conv output
+  stays in shared memory.
 * ``stem_pool_plain`` is the same function in plain PyTorch (im2col, an
   f32 matmul with TF32 off, affine, ReLU, maxpool, one rounding to the
   input's dtype).  It serves CPU tensors, and the tests and the on-card
@@ -122,18 +123,17 @@ def stem_pool_cuda(x: torch.Tensor, k4: torch.Tensor, scale: torch.Tensor,
     if f != STEM_FEATURES:
         raise ValueError(f"the CUDA stem kernel has {STEM_FEATURES} output channels, got {f}")
     x = x.contiguous()
-    w = k4.reshape(48, f).to(x.device, torch.bfloat16).contiguous()
+    # n-major (64, 48) weights: a lane's B fragment pairs neighbouring taps
+    wt = k4.reshape(48, f).t().to(x.device, torch.bfloat16).contiguous()
     s = scale.to(x.device, torch.float32).contiguous()
     b = bias.to(x.device, torch.float32).contiguous()
     n = x.shape[0]
     out = torch.empty((n, PATCH // 2, PATCH // 2, f), dtype=torch.bfloat16, device=x.device)
     if n == 0:
         return out
-    fn = _kernel_fn()
-    stream = torch.cuda.current_stream(x.device).cuda_stream
-    with torch.cuda.device(x.device):
-        status = fn(x.data_ptr(), w.data_ptr(), s.data_ptr(), b.data_ptr(), out.data_ptr(),
-                    n, stream)
+    device = x.device.index if x.device.index is not None else torch.cuda.current_device()
+    status = _kernel_fn()(x.data_ptr(), wt.data_ptr(), s.data_ptr(), b.data_ptr(), out.data_ptr(),
+                          n, device, torch.cuda.current_stream(x.device).cuda_stream)
     _cuda.check(status, "stem_pool_cuda")
     stem_pool_cuda.launches += 1
     return out
@@ -144,10 +144,19 @@ stem_pool_cuda.launches = 0
 
 
 def _kernel_fn():
-    fn = _cuda.load("stem_pool").ssad_stem_pool
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int, ctypes.c_void_p]
-    return fn
+    return _cuda.bind("stem_pool", "ssad_stem_pool",
+                      [ctypes.c_void_p] * 5 + [ctypes.c_int] * 2 + [ctypes.c_void_p])
+
+
+def stem_blocks_per_sm(device: torch.device) -> int:
+    """Resident blocks of the stem kernel per SM (the CUDA occupancy
+    calculator); for the on-card records."""
+    fn = _cuda.bind("stem_pool", "ssad_stem_pool_occupancy",
+                    [ctypes.c_int, ctypes.POINTER(ctypes.c_int)])
+    blocks = ctypes.c_int(0)
+    index = device.index if device.index is not None else torch.cuda.current_device()
+    _cuda.check(fn(index, ctypes.byref(blocks)), "stem_blocks_per_sm")
+    return blocks.value
 
 
 def stem_pool(x: torch.Tensor, k4: torch.Tensor, scale: torch.Tensor,

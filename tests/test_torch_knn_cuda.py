@@ -40,7 +40,11 @@ def _check(q, b, k):
 @pytest.mark.parametrize(
     "n, m, d, k",
     [(8, 700, 512, 3), (300, 700, 512, 3), (37, 1000, 512, 1), (8, 20, 512, 3),
-     (5, 3, 512, 3), (129, 4096, 512, 8), (3, 50, 100, 2)],
+     (5, 3, 512, 3), (129, 4096, 512, 8), (3, 50, 100, 2),
+     # banks smaller than a full cluster, under several query tiles
+     (300, 20, 512, 3), (9, 3, 100, 3),
+     # a bank that is not a multiple of the rows per CTA (96; last CTA 41)
+     (37, 1001, 512, 8)],
 )
 def test_kernel_matches_plain(cuda_device, n, m, d, k):  # noqa: F811
     _check(*_data(cuda_device, n, m, d, n + m), k)
@@ -56,7 +60,42 @@ def test_duplicate_rows_and_near_neighbours(cuda_device):  # noqa: F811
 
 
 def test_wide_rows_take_the_large_shared_memory_path(cuda_device):  # noqa: F811
-    _check(*_data(cuda_device, 9, 64, 2048, 3), 3)  # 8 × 2048 × 4 B > 48 KB
+    # 2048-wide rows: the kernel streams D in slices, so shared memory does
+    # not grow with D (the plan's bytes are checked in test_torch_knn_plan.py)
+    _check(*_data(cuda_device, 9, 64, 2048, 3), 3)
+
+
+def test_odd_depth_and_unaligned_rows_are_padded(cuda_device):  # noqa: F811
+    # the kernel copies 16-byte pieces: D = 98 and a view that starts one
+    # float into its storage both go through a zero-padded copy
+    q, b = _data(cuda_device, 6, 90, 98, 10)
+    _check(q, b, 3)
+    flat = torch.randn(1 + 6 * 64, device=cuda_device)
+    _check(flat[1:].view(6, 64), b[:, :64].contiguous(), 2)
+
+
+def test_one_kernel_launch_per_call(cuda_device):  # noqa: F811
+    from torch.profiler import ProfilerActivity, profile
+
+    q, b = _data(cuda_device, 300, 700, 512, 8)
+    knn.knn_cosine_scores_cuda(q, b, k=3)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(3):
+            knn.knn_cosine_scores_cuda(q, b, k=3)
+        torch.cuda.synchronize()
+    kernels = [e.name for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    assert len(kernels) == 3 and all("knn_cluster_kernel" in name for name in kernels), kernels
+
+
+def test_back_to_back_calls_are_bit_identical(cuda_device):  # noqa: F811
+    for n, m in ((8, 700), (300, 700), (5, 3)):
+        q, b = _data(cuda_device, n, m, 512, 9)
+        first = knn.knn_cosine_scores_cuda(q, b, k=3)
+        second = knn.knn_cosine_scores_cuda(q, b, k=3)
+        torch.cuda.synchronize()
+        assert torch.equal(first, second)
 
 
 def test_banks_above_1024_rows_dispatch_to_the_tiled_kernel(cuda_device):  # noqa: F811

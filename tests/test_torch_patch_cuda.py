@@ -53,6 +53,21 @@ def test_stem_kernel_matches_plain(cuda_device, n):  # noqa: F811
     check_stem(*_stem_inputs(cuda_device, n, n))
 
 
+def test_stem_kernel_band_halos_and_conv_padding(cuda_device):  # noqa: F811
+    """Large values on the patch's border rows and columns and on the rows
+    where the kernel's 8-row bands meet: the conv's zero padding and the
+    halo row a band takes from the one before both decide pooled outputs."""
+    x, k4, scale, bias = _stem_inputs(cuda_device, 7, 11)
+    x = x.clone()
+    x[:, 0] = 24.0
+    x[:, 31] = -24.0
+    x[:, :, 0] = 16.0
+    x[:, :, 31] = 20.0
+    x[:, 7::8] *= 12.0  # the last row of every band: a halo of the next
+    x[2:4] = -x[2:4]
+    check_stem(x, k4, scale, bias)
+
+
 def test_stem_kernel_pools_zero_padding_and_refuses_bad_input(cuda_device):  # noqa: F811
     x, k4, scale, bias = _stem_inputs(cuda_device, 3, 7)
     # a negative bias makes most conv outputs zero after the ReLU
