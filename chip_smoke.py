@@ -11,7 +11,7 @@ failure; the script exits 0 only when all pass):
 1. Print the card's name and power limit (nvidia-smi), build every CUDA
    kernel of the serving paths from ssad_tpu_torch/csrc (knn, knn_tiled,
    stem_pool: one nvcc per source, started together) and print ptxas's
-   register and spill lines.
+   register and spill lines and any note that it serialized wgmmas.
 2. Hold each kernel against its plain PyTorch version on the card (TF32
    off) at its paths' shapes, and time kernel, plain version and a
    library yardstick beside the card's bound; at the main shapes also
@@ -25,10 +25,22 @@ failure; the script exits 0 only when all pass):
      bands kept in shared memory, four blocks per SM) at N ∈ {6728, 841,
      9, 1} patches, rtol 2⁻⁷ / atol 1e-6 (one bf16 ulp) with fewer than
      1e-3 of the elements not bit-equal;
-   * the streaming bf16x3 k-NN kernel at the request (6728 × 29435) and
-     fit (12615 × 29435) shapes, a ragged tile, duplicates across tiles
-     and splits, and k = 1: max |Δ| ≤ 1e-5 against its plain version and
-     ≤ 3e-5 against the f32 function.
+   * the streaming bf16x3 k-NN kernel (wgmma m64n128k16 bf16 → f32 from
+     two consumer warpgroups of 64 query rows, fed a 3-stage ring of
+     128-byte-swizzled 64-deep slices by a TMA producer warp against
+     mbarriers; each 64-deep group of products summed in a fresh
+     accumulator and added to the running sum with IEEE f32 adds; the
+     top-k taken straight from the accumulator registers; a grid of
+     128-query tiles × bank splits chosen by ``_tiled_plan``) at the
+     request (6728 × 29435) and fit (12615 × 29435) shapes, a ragged tile,
+     duplicates across tiles and splits, near-duplicates at cos ≈ 1 and
+     k = 1: max |Δ| ≤ 1e-5 against its plain version and ≤ 3e-5 against
+     the f32 function, each case also through the bank's TiledBank (split
+     once, as the served scorer holds it; the same bits required).  At
+     the main shapes ``ms`` is timed against the TiledBank and
+     ``ms_raw_bank`` against the raw bank; those lines also give the
+     plan's splits and waves, the group depth G (from the built kernel)
+     and the CTAs resident per SM.
 3. Drive the image-mode serving path at full width: PeraNet/ResNet-18,
    256×256×3 inputs, 512-d embeddings, bf16 compute, seeded random
    weights in the reference layout; a 1000-row bank embedded from
@@ -48,11 +60,12 @@ failure; the script exits 0 only when all pass):
    reset just before the export and read just after the last request:
    the stem kernel ran for every normality chunk, calibration chunk and
    served batch, the tiled kernel for the fit and every such batch.  Then:
-   the bank and header, HTTP map statistics equal the direct scorer's to
-   1e-6, the served maps equal maps rebuilt from the same embeddings
-   through the plain tiled k-NN to 1e-5, every heatmap is a 256×256 PNG,
-   and the f32 model's patch embeddings on the card match the CPU port's
-   to 1e-3.
+   the bank and header, the served scorer holds the bank's TiledBank
+   (normalised and split once), HTTP map statistics equal the direct
+   scorer's to 1e-6, the served maps equal maps rebuilt from the same
+   embeddings through the plain tiled k-NN to 1e-5, every heatmap is a
+   256×256 PNG, and the f32 model's patch embeddings on the card match
+   the CPU port's to 1e-3.
 5. Print one JSON line of kernel records (all three kernels), the card
    line again, and the final {"ok": true, "device": ...} line.
 """
@@ -358,27 +371,41 @@ def check_tiled_kernel(device):
     }
     base = randn(5000, 512)
     cases["duplicates"] = (base[:16] + 1e-3 * randn(16, 512), torch.cat([base, base[:300]]), 3)
+    near = cases["serve"][1]  # bank rows + 1e-4 noise: best similarities at cos ≈ 1
+    cases["near_duplicates"] = (near[:WINDOWS] + 1e-4 * randn(WINDOWS, 512), near, 1)
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
 
     records = {}
     for name, (q, b, k) in cases.items():
+        prepared = knn.prepare_tiled_bank(b)  # as the served scorer holds its bank
         out = knn.knn_cosine_scores_tiled_cuda(q, b, k=k)
+        out_prepared = knn.knn_cosine_scores_tiled_cuda(q, prepared, k=k)
         torch.cuda.synchronize()
         err = float(torch.max(torch.abs(out - knn.knn_cosine_scores_tiled_plain(q, b, k=k))))
         err32 = float(torch.max(torch.abs(out - knn.knn_cosine_scores_plain(q, b, k=k))))
         if not (err <= KNN_TOL and err32 <= KNN_F32_TOL):
             fail(f"tiled knn kernel vs plain on {name} {tuple(q.shape)}x{tuple(b.shape)}: "
                  f"max|d|={err} (bf16x3), {err32} (f32)")
+        if not torch.equal(out, out_prepared):
+            fail(f"tiled knn kernel on {name}: a raw bank and its TiledBank disagree")
         rec = {"shape": [q.shape[0], b.shape[0], q.shape[1]], "k": k, "max_abs_err": err,
                "max_abs_err_vs_f32": err32}
         if name in ("serve", "fit"):
             qn, bn = knn.l2_normalize(q), knn.l2_normalize(b)
-            rec["ms"] = cuda_ms(lambda: knn.knn_cosine_scores_tiled_cuda(q, b, k=k))
+            rec["ms"] = cuda_ms(lambda: knn.knn_cosine_scores_tiled_cuda(q, prepared, k=k))
+            rec["ms_raw_bank"] = cuda_ms(lambda: knn.knn_cosine_scores_tiled_cuda(q, b, k=k))
             rec["plain_ms"] = cuda_ms(lambda: knn.knn_cosine_scores_tiled_plain(q, b, k=k),
                                       warmup=2)
             rec["library_ms"] = cuda_ms(lambda: torch.topk(qn @ bn.T, k, dim=1), warmup=2)
             rec["bound_ms"], rec["bound_by"] = tiled_bound(q.shape[0], b.shape[0], q.shape[1])
             rec["device_us"] = device_us(
-                lambda: knn.knn_cosine_scores_tiled_cuda(q, b, k=k), "knn_tiled", 10)
+                lambda: knn.knn_cosine_scores_tiled_cuda(q, prepared, k=k), "knn_tiled", 10)
+            plan = knn._tiled_plan(q.shape[0], b.shape[0], prepared.hi.shape[1], sms)
+            resident = knn.knn_tiled_resident_ctas(device)
+            rec["plan"] = plan._asdict()
+            rec["plan_waves"] = -(-plan.query_tiles * plan.splits // (sms * resident))
+            rec["group_depth"] = knn.knn_tiled_group_depth()
+            rec["resident_ctas_per_sm"] = resident
         records[name] = rec
         print(f"knn_tiled {name}: {json.dumps(rec)}", flush=True)
     return records
@@ -675,6 +702,9 @@ def drive_patch_path(device, work: Path, seed: int = 1):
     if tuple(scorer.bank.shape) != (fit_rows, 512) or meta["knn_impl"] != "cuda_tiled":
         fail(f"patch bank {tuple(scorer.bank.shape)} != ({fit_rows}, 512) or knn_impl "
              f"{meta['knn_impl']!r}")
+    if not isinstance(scorer.knn_bank, knn.TiledBank) or scorer.knn_bank.shape != (fit_rows, 512):
+        fail(f"the served scorer scores against {type(scorer.knn_bank).__name__}, not the "
+             f"bank's TiledBank split once")
     if (meta["mode"], meta["upsample_to"], meta["batch"]) != ("patch", IMSIZE, BATCH):
         fail(f"patch header {meta['mode']}, upsample_to {meta['upsample_to']}, batch {meta['batch']}")
     (direct,) = scorer(np.stack(expected_inputs))
@@ -782,7 +812,7 @@ def main() -> int:
     print(f"build: {sorted(libs)} in {time.perf_counter() - t0:.2f} s", flush=True)
     for name, log in _cuda.build_logs.items():
         for line in log.splitlines():
-            if "registers" in line or "spill" in line:
+            if "registers" in line or "spill" in line or "Performance Loss" in line:
                 print(f"ptxas {name}: {line.strip()}", flush=True)
 
     records = check_knn_kernel(device)
@@ -807,7 +837,7 @@ def main() -> int:
         "device_us": serve["device_us"], "fit_device_us": records["fit"]["device_us"],
         "fit_ms": records["fit"]["ms"], "fit_library_ms": records["fit"]["library_ms"],
     }]
-    tserve = tiled_records["serve"]
+    tserve, tfit = tiled_records["serve"], tiled_records["fit"]
     kernels.append({
         "name": "knn_cosine_scores_tiled", "route": "cuda",
         "source": "ssad_tpu_torch/csrc/knn_tiled.cu", "replaces": "ssad_tpu/ops/knn.py:165",
@@ -816,7 +846,11 @@ def main() -> int:
         "ms": tserve["ms"], "plain_ms": tserve["plain_ms"], "bound_ms": tserve["bound_ms"],
         "bound_by": tserve["bound_by"], "library_ms": tserve["library_ms"],
         "shape": tserve["shape"], "k": tserve["k"], "path": "patch",
-        "device_us": tserve["device_us"],
+        "ms_bank_form": "TiledBank (split once, as served)",
+        "device_us": tserve["device_us"], "ms_raw_bank": tserve["ms_raw_bank"],
+        "resident_ctas_per_sm": tserve["resident_ctas_per_sm"],
+        "fit_ms": tfit["ms"], "fit_device_us": tfit["device_us"], "fit_plain_ms": tfit["plain_ms"],
+        "fit_library_ms": tfit["library_ms"], "fit_bound_ms": tfit["bound_ms"],
     })
     sserve = stem_records[BATCH * WINDOWS]
     kernels.append({

@@ -18,10 +18,14 @@ torch.profiler:
     copies, the rest = the model) with the top kernels by time;
 * patch mode (a 29,435-row f32 bank, 6,728 windows per batch):
   * ``kernels``: device time per call of the stem kernel at N = 6728 and
-    of the tiled k-NN kernel (its two kernels summed) at 6728 × 29435;
+    of the tiled k-NN kernel (its two kernels summed) at 6728 × 29435,
+    against the bank's TiledBank (split once, as served) and against the
+    raw bank (normalised and split on every call);
   * ``served_batch``: as above, with the groups stem kernel, tiled k-NN
-    kernel, the split/normalise ops around it, copies, and the rest (the
-    backbone, head and the blur ⊗ upsample products).
+    kernel, copies, and the rest (the backbone, head, the queries'
+    normalise/split and the blur ⊗ upsample products), and the count of
+    host-side ops per call that take a bank-sized (29,435-row) tensor:
+    0 when the scorer holds the split bank.
 
 Prints one JSON line per section and the card's name and power limit.
 Imports nothing of JAX or of the JAX package.
@@ -82,9 +86,9 @@ def group(name: str) -> str:
     return "model"
 
 
-def profile(fn, calls: int):
+def profile(fn, calls: int, rows: int = 0):
     """Trace ``calls`` calls of fn after a warmup; returns (events, wall_ms
-    per call)."""
+    per call, host-side ops per call with an input of ``rows`` rows)."""
     import torch
     from torch.profiler import ProfilerActivity
     from torch.profiler import profile as tprofile
@@ -92,18 +96,25 @@ def profile(fn, calls: int):
     for _ in range(5):
         fn()
     torch.cuda.synchronize()
-    with tprofile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with tprofile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                  record_shapes=bool(rows)) as prof:
         t0 = time.perf_counter()
         for _ in range(calls):
             fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3 / calls
-    return device_events(prof), wall_ms
+    sized = sum(
+        1 for e in prof.events()
+        if rows and e.device_type == torch.autograd.DeviceType.CPU
+        and any(s and s[0] == rows for s in (e.input_shapes or []))
+    )
+    return device_events(prof), wall_ms, sized / calls
 
 
-def breakdown(scorer, x, calls: int, section: dict) -> None:
+def breakdown(scorer, x, calls: int, section: dict, rows: int = 0) -> None:
     """Trace ``calls`` scorer calls and print the device-time groups."""
-    events, wall_ms = profile(lambda: scorer(x), calls)
+    events, wall_ms, _ = profile(lambda: scorer(x), calls)
+    sized = profile(lambda: scorer(x), 1, rows)[2] if rows else 0  # shapes cost host time
     by_group, by_name = {}, {}
     for name, s, e in events:
         by_group[group(name)] = by_group.get(group(name), 0.0) + (e - s) / calls
@@ -117,6 +128,7 @@ def breakdown(scorer, x, calls: int, section: dict) -> None:
         "device_us_by_group": by_group,
         "top_kernels_us": [[name[:80], us] for name, us in top],
         "device_events_per_call": len(events) / calls,
+        **({"bank_sized_ops_per_call": sized} if rows else {}),
     }), flush=True)
 
 
@@ -132,7 +144,7 @@ def image_mode(device) -> None:
         q = torch.randn((n, 512), generator=gen, device=device)
         b = torch.randn((700, 512), generator=gen, device=device)
         calls = 200
-        events, wall_ms = profile(lambda: knn.knn_cosine_scores_cuda(q, b, k=3), calls)
+        events, wall_ms, _ = profile(lambda: knn.knn_cosine_scores_cuda(q, b, k=3), calls)
         kern = [e for e in events if "knn_" in e[0]]
         print(json.dumps({"section": "knn", "shape": [n, 700, 512], "k": 3,
                           "device_events": len(kern),
@@ -162,14 +174,17 @@ def patch_mode(device) -> None:
     scale, bias = torch.ones(64, device=device), torch.zeros(64, device=device)
     q = torch.randn((n, 512), generator=gen, device=device)
     b = torch.randn((m, 512), generator=gen, device=device)
+    prepared = knn.prepare_tiled_bank(b)
     for name, fn, key, shape in (
         ("stem_pool", lambda: stem_pool.stem_pool_cuda(x, k4, scale, bias), "stem_pool",
          [n, 32, 32, 3]),
-        ("knn_cosine_scores_tiled", lambda: knn.knn_cosine_scores_tiled_cuda(q, b, k=3),
+        ("knn_cosine_scores_tiled", lambda: knn.knn_cosine_scores_tiled_cuda(q, prepared, k=3),
+         "knn_tiled", [n, m, 512]),
+        ("knn_cosine_scores_tiled_raw_bank", lambda: knn.knn_cosine_scores_tiled_cuda(q, b, k=3),
          "knn_tiled", [n, m, 512]),
     ):
         calls = 20
-        events, wall_ms = profile(fn, calls)
+        events, wall_ms, _ = profile(fn, calls)
         kern = [e for e in events if key in e[0]]
         print(json.dumps({"section": "kernels", "mode": "patch", "kernel": name,
                           "shape": shape, "device_events": len(kern),
@@ -184,7 +199,7 @@ def patch_mode(device) -> None:
             "patch_dim": 32, "stride": 8, "upsample_to": chip_smoke.IMSIZE}
     scorer = ServedScorer(meta, chip_smoke.reference_state_dict(0), bank, device)
     breakdown(scorer, chip_smoke.synthetic_images(rng, chip_smoke.BATCH), 5,
-              {"mode": "patch", "patches": n, "bank_rows": m})
+              {"mode": "patch", "patches": n, "bank_rows": m}, rows=m)
 
 
 def main() -> int:

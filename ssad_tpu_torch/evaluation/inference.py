@@ -81,14 +81,15 @@ class InferenceEngine:
     def score_patch_maps(
         self,
         x_normalized,
-        bank: torch.Tensor,
+        bank,
         dim: int = 32,
         stride: int = 8,
         k: int = 3,
         upsample_to: Optional[int] = None,
     ) -> torch.Tensor:
         """(B, side, side) k-NN anomaly maps, or (B, upsample_to,
-        upsample_to) blurred and upsampled ones."""
+        upsample_to) blurred and upsampled ones; ``bank`` is an (M, D)
+        tensor or its ``ops.knn.TiledBank``."""
         with torch.inference_mode():
             out, b, n = self.embed_grid(x_normalized, dim, stride)
             scores = knn_cosine_scores(out["latent_space"], bank, k=k)

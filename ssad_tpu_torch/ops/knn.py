@@ -15,7 +15,9 @@ Two functions, as in the JAX package, chosen by bank size:
   ``knn_cosine_scores_tiled_cuda`` launches csrc/knn_tiled.cu (replacing
   the streaming TPU kernel ``_knn_tiled_kernel``);
   ``knn_cosine_scores_tiled_plain`` is three f32 matmuls with TF32 off,
-  then ``torch.topk``.
+  then ``torch.topk``.  A fitted bank is normalised and split once into
+  a ``TiledBank`` (``prepare_bank``), which both take in place of the
+  raw bank.
 
 The plain versions serve CPU tensors, and the tests and the on-card check
 hold each kernel against its plain version.  ``knn_cosine_scores``
@@ -43,8 +45,8 @@ _CHUNK_ROWS = 48  # csrc/knn.cu kBM
 _STAGES = 3  # csrc/knn.cu kStages
 _PARTIAL_ROWS = 256  # csrc/knn.cu Tile<BQ>::KS * BQ: depth groups x queries
 _TILE_Q = 128  # csrc/knn_tiled.cu kBQ
-_TILE_M = 128  # csrc/knn_tiled.cu kBM
-_TILE_D = 32  # csrc/knn_tiled.cu kBK: the depth is zero-padded to a multiple
+_TILE_M = 128  # csrc/knn_tiled.cu kBN
+_TILE_D = 64  # csrc/knn_tiled.cu kBK: the depth is zero-padded to a multiple
 
 #: banks above this many rows take the bf16x3 streaming function (the
 #: JAX package's resident↔tiled crossover, ssad_tpu/ops/knn.py:329)
@@ -56,8 +58,8 @@ def l2_normalize(x: torch.Tensor, dim: int = -1, eps: float = 1e-12) -> torch.Te
     return x / torch.clamp(n, min=eps)
 
 
-def _check_args(queries: torch.Tensor, bank: torch.Tensor, k: int) -> None:
-    if queries.ndim != 2 or bank.ndim != 2 or queries.shape[1] != bank.shape[1]:
+def _check_args(queries: torch.Tensor, bank, k: int) -> None:
+    if queries.ndim != 2 or len(bank.shape) != 2 or queries.shape[1] != bank.shape[1]:
         raise ValueError(
             f"expected queries (N, D) and bank (M, D), got "
             f"{tuple(queries.shape)} and {tuple(bank.shape)}"
@@ -184,13 +186,52 @@ def split_bf16x2(x: torch.Tensor):
     return hi.to(torch.bfloat16), (x - hi).to(torch.bfloat16)
 
 
-def knn_cosine_scores_tiled_plain(queries: torch.Tensor, bank: torch.Tensor,
-                                  k: int = 3) -> torch.Tensor:
-    """Plain PyTorch version of the bf16x3 function: (N, D), (M, D) →
-    (N,) f32 scores."""
+class TiledBank(NamedTuple):
+    """A bank prepared once for the bf16x3 function: its L2-normalised
+    rows split into bf16 ``hi``/``lo`` (``split_bf16x2``), the depth
+    zero-padded to a multiple of the kernel's 64-deep slices.  A fitted
+    bank is fixed for an artifact's life, so the served path builds this
+    once (``prepare_bank``) instead of on every call."""
+
+    hi: torch.Tensor  # (M, Dp) bf16
+    lo: torch.Tensor  # (M, Dp) bf16
+    dim: int  # D before padding
+
+    @property
+    def shape(self):
+        return (self.hi.shape[0], self.dim)
+
+    @property
+    def device(self) -> torch.device:
+        return self.hi.device
+
+
+def prepare_tiled_bank(bank: torch.Tensor) -> TiledBank:
+    """(M, D) bank → its TiledBank, on the bank's device."""
+    if bank.ndim != 2:
+        raise ValueError(f"expected a bank (M, D), got {tuple(bank.shape)}")
+    return TiledBank(*_split_padded(bank), bank.shape[1])
+
+
+def prepare_bank(bank: torch.Tensor):
+    """The form of a fitted bank that k-NN scoring takes fastest on its
+    device: a TiledBank where csrc/knn_tiled.cu serves it (a CUDA bank of
+    more than PALLAS_MAX_BANK_ROWS rows), else the bank itself."""
+    if bank.device.type == "cuda" and bank.shape[0] > PALLAS_MAX_BANK_ROWS:
+        return prepare_tiled_bank(bank)
+    return bank
+
+
+def knn_cosine_scores_tiled_plain(queries: torch.Tensor, bank, k: int = 3) -> torch.Tensor:
+    """Plain PyTorch version of the bf16x3 function: (N, D) queries and an
+    (M, D) bank or its TiledBank → (N,) f32 scores, the same bits from
+    either form of the bank."""
     _check_args(queries, bank, k)
     qh, ql = (t.float() for t in split_bf16x2(l2_normalize(queries.to(torch.float32))))
-    bh, bl = (t.float() for t in split_bf16x2(l2_normalize(bank.to(torch.float32))))
+    if isinstance(bank, TiledBank):
+        bh, bl = (t[:, : bank.dim].float().contiguous() for t in (bank.hi, bank.lo))
+    else:
+        bh, bl = (t.float() for t in split_bf16x2(l2_normalize(bank.to(torch.float32))))
     with tf32_off():
         sims = qh @ bh.T
         sims += qh @ bl.T
@@ -209,22 +250,76 @@ def _split_padded(x: torch.Tensor):
     return hi.contiguous(), lo.contiguous()
 
 
-def _tiled_splits(n: int, m: int, device: torch.device):
-    """(bank tiles per split, splits): about eight waves of two blocks
-    per SM over the (query tiles × splits) grid."""
-    q_tiles = -(-n // _TILE_Q)
-    m_tiles = -(-m // _TILE_M)
-    sms = torch.cuda.get_device_properties(device).multi_processor_count
-    want = max(1, min(m_tiles, -(-16 * sms // q_tiles)))
-    per_split = -(-m_tiles // want)
-    return per_split, -(-m_tiles // per_split)
+class TiledPlan(NamedTuple):
+    """Launch plan of csrc/knn_tiled.cu: a grid of ``query_tiles`` ×
+    ``splits`` CTAs (query tiles fastest), each walking
+    ``tiles_per_split`` of the ``bank_tiles`` tiles of ``_TILE_M`` rows
+    (the last split fewer)."""
+
+    query_tiles: int
+    bank_tiles: int
+    tiles_per_split: int
+    splits: int
 
 
-def knn_cosine_scores_tiled_cuda(queries: torch.Tensor, bank: torch.Tensor,
-                                 k: int = 3) -> torch.Tensor:
+def _makespan(jobs, sms: int) -> float:
+    """Finish time of ``jobs`` — (count, duration) runs in launch order —
+    handed one at a time to the earliest free of ``sms`` SMs."""
+    free = {0.0: sms}  # time an SM frees up → how many SMs free up then
+    for count, duration in jobs:
+        while count:
+            t = min(free)
+            take = min(free[t], count)
+            free[t] -= take
+            if not free[t]:
+                del free[t]
+            free[t + duration] = free.get(t + duration, 0) + take
+            count -= take
+    return max(free)
+
+
+@functools.lru_cache(maxsize=256)
+def _tiled_plan(n: int, m: int, d: int, sms: int) -> TiledPlan:
+    """The splits of the bank for N queries against M rows of depth D on
+    ``sms`` SMs, one CTA per SM.
+
+    A CTA costs its tiles' 64-deep slices plus one slice for filling its
+    ring and writing its partial top-k; CTAs go to SMs in launch order as
+    SMs free up.  Of all split counts the one with the earliest finish
+    wins (the fewest splits among equals).  At the patch path's request
+    shape, 53 query tiles × 230 bank tiles on 132 SMs, that is 15 splits
+    of 16 tiles in 7 waves, with 4 % of the SMs' time idle."""
+    if n < 1 or m < 1 or d < 1 or sms < 1:
+        raise ValueError(f"empty k-NN problem: N={n}, M={m}, D={d}, SMs={sms}")
+    q_tiles, m_tiles = -(-n // _TILE_Q), -(-m // _TILE_M)
+    slices = -(-d // _TILE_D)
+    best = None
+    for per_split in sorted({-(-m_tiles // s) for s in range(1, m_tiles + 1)}, reverse=True):
+        span = _makespan(_tiled_jobs(q_tiles, m_tiles, per_split, slices), sms)
+        if best is None or span < best[0]:
+            best = (span, per_split)
+    per_split = best[1]
+    return TiledPlan(q_tiles, m_tiles, per_split, -(-m_tiles // per_split))
+
+
+def _tiled_jobs(q_tiles: int, m_tiles: int, per_split: int, slices: int):
+    """The plan's CTAs as (count, duration) runs in launch order: each
+    costs its tiles' 64-deep slices plus one for its fill and write-out."""
+    splits = -(-m_tiles // per_split)
+    last = m_tiles - (splits - 1) * per_split
+    return [(q_tiles * (splits - 1), per_split * slices + 1), (q_tiles, last * slices + 1)]
+
+
+@functools.lru_cache(maxsize=16)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def knn_cosine_scores_tiled_cuda(queries: torch.Tensor, bank, k: int = 3) -> torch.Tensor:
     """Launch the CUDA kernel (csrc/knn_tiled.cu) on the current stream.
-    The normalisation and the bf16 split run as torch ops first, as the
-    JAX package runs them in XLA outside its kernel."""
+    ``bank`` is an (M, D) tensor or its TiledBank; a raw bank is
+    normalised and split here on every call, the queries always are (as
+    the JAX package runs both in XLA outside its kernel)."""
     _check_args(queries, bank, k)
     if queries.device.type != "cuda" or bank.device != queries.device:
         raise ValueError(
@@ -237,17 +332,18 @@ def knn_cosine_scores_tiled_cuda(queries: torch.Tensor, bank: torch.Tensor,
     out = torch.empty(n, dtype=torch.float32, device=queries.device)
     if n == 0:
         return out
+    if not isinstance(bank, TiledBank):
+        bank = prepare_tiled_bank(bank)
     qh, ql = _split_padded(queries)
-    bh, bl = _split_padded(bank)
-    per_split, splits = _tiled_splits(n, m, queries.device)
-    partial = torch.empty((n, splits, k), dtype=torch.float32, device=queries.device)
-    fn = _tiled_kernel_fn()
-    stream = torch.cuda.current_stream(queries.device).cuda_stream
-    with torch.cuda.device(queries.device):
-        status = fn(
-            qh.data_ptr(), ql.data_ptr(), bh.data_ptr(), bl.data_ptr(),
-            partial.data_ptr(), out.data_ptr(), n, m, qh.shape[1], k, per_split, splits, stream,
-        )
+    dp = qh.shape[1]
+    device = queries.device.index if queries.device.index is not None else torch.cuda.current_device()
+    plan = _tiled_plan(n, m, dp, _sm_count(device))
+    partial = torch.empty((n, plan.splits, k), dtype=torch.float32, device=queries.device)
+    status = _tiled_kernel_fn()(
+        qh.data_ptr(), ql.data_ptr(), bank.hi.data_ptr(), bank.lo.data_ptr(),
+        partial.data_ptr(), out.data_ptr(), n, m, dp, k, plan.tiles_per_split, plan.splits,
+        device, torch.cuda.current_stream(queries.device).cuda_stream,
+    )
     _cuda.check(status, "knn_cosine_scores_tiled_cuda")
     knn_cosine_scores_tiled_cuda.launches += 1
     return out
@@ -259,13 +355,37 @@ knn_cosine_scores_tiled_cuda.launches = 0
 
 def _tiled_kernel_fn():
     return _cuda.bind("knn_tiled", "ssad_knn_tiled_scores",
-                      [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [ctypes.c_void_p])
+                      [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7 + [ctypes.c_void_p])
 
 
-def knn_cosine_scores(queries: torch.Tensor, bank: torch.Tensor, k: int = 3) -> torch.Tensor:
+def knn_tiled_resident_ctas(device: torch.device) -> int:
+    """CTAs of csrc/knn_tiled.cu resident per SM (the CUDA occupancy
+    calculator); for the on-card records."""
+    index = device.index if device.index is not None else torch.cuda.current_device()
+    fn = _cuda.bind("knn_tiled", "ssad_knn_tiled_occupancy",
+                    [ctypes.c_int, ctypes.POINTER(ctypes.c_int)])
+    blocks = ctypes.c_int(0)
+    _cuda.check(fn(index, ctypes.byref(blocks)), "knn_tiled_resident_ctas")
+    return blocks.value
+
+
+def knn_tiled_group_depth() -> int:
+    """Depth of D that csrc/knn_tiled.cu, as built, sums in a fresh
+    tensor-core accumulator before each IEEE f32 add; for the records."""
+    return _cuda.bind("knn_tiled", "ssad_knn_tiled_group_depth", [])()
+
+
+def knn_cosine_scores(queries: torch.Tensor, bank, k: int = 3) -> torch.Tensor:
     """By bank size (≤ PALLAS_MAX_BANK_ROWS: f32; above: bf16x3), then by
-    device: CUDA tensors → the kernel; CPU tensors → the plain version."""
+    device: CUDA tensors → the kernel; CPU tensors → the plain version.
+    ``bank`` is an (M, D) tensor or, above PALLAS_MAX_BANK_ROWS rows, its
+    TiledBank (``prepare_bank``)."""
     tiled = bank.shape[0] > PALLAS_MAX_BANK_ROWS
+    if isinstance(bank, TiledBank) and not tiled:
+        raise ValueError(
+            f"a TiledBank of {bank.shape[0]} rows: banks of at most "
+            f"{PALLAS_MAX_BANK_ROWS} rows take the f32 function, which needs the raw bank"
+        )
     if queries.device.type == "cuda":
         if tiled:
             return knn_cosine_scores_tiled_cuda(queries, bank, k=k)

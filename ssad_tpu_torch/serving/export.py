@@ -46,7 +46,7 @@ from ssad_tpu_torch.config import DataConfig, EvalConfig, ModelConfig
 from ssad_tpu_torch.evaluation.inference import InferenceEngine
 from ssad_tpu_torch.models.peranet import build_model
 from ssad_tpu_torch.ops import image as im
-from ssad_tpu_torch.ops.knn import PALLAS_MAX_BANK_ROWS, knn_cosine_scores
+from ssad_tpu_torch.ops.knn import PALLAS_MAX_BANK_ROWS, knn_cosine_scores, prepare_bank
 from ssad_tpu_torch.utils.device import resolve_device
 
 _MAGIC = b"SSADPT01"
@@ -215,6 +215,7 @@ def _calibration_summary(det, mode, engine, data, patch_dim, stride, upsample_to
         return None
     images = data.val_images if len(data.val_images) else data.train_images
     images = images[:max_images]
+    bank = prepare_bank(det.bank)  # split once for all the chunks
     maxima = []
     for lo in range(0, images.shape[0], 4):
         chunk = images[lo : lo + 4]
@@ -223,7 +224,7 @@ def _calibration_summary(det, mode, engine, data, patch_dim, stride, upsample_to
             chunk = np.concatenate([chunk, np.repeat(chunk[-1:], 4 - n_real, axis=0)])
         x = torch.from_numpy(np.ascontiguousarray(chunk, np.float32)).to(engine.device)
         maps = engine.score_patch_maps(
-            im.normalize_imagenet(x), det.bank, dim=patch_dim, stride=stride, k=det.k,
+            im.normalize_imagenet(x), bank, dim=patch_dim, stride=stride, k=det.k,
             upsample_to=upsample_to,
         )
         maxima.extend(maps.amax(dim=(1, 2))[:n_real].cpu().tolist())
@@ -251,7 +252,10 @@ class ServedScorer:
     Sub-``batch`` inputs are zero-padded to the artifact's batch and the
     padding rows dropped from the outputs; larger inputs are chunked.
     On a CUDA device every kernel of the path is the CUDA one; on the CPU
-    it is the plain version.
+    it is the plain version.  ``bank`` stays the raw f32 bank;
+    ``knn_bank`` is what the k-NN scoring takes (``prepare_bank``: on the
+    card a bank above PALLAS_MAX_BANK_ROWS rows is normalised and split
+    here, once, instead of on every call).
     """
 
     def __init__(self, meta: dict, state_dict: dict, bank: torch.Tensor, device=None):
@@ -261,6 +265,7 @@ class ServedScorer:
         model.load_state_dict(state_dict, strict=True)
         self.engine = InferenceEngine(model, self.device)
         self.bank = bank.to(self.device, torch.float32).contiguous()
+        self.knn_bank = prepare_bank(self.bank)
         self.k = int(meta["k"])
         self.threshold = float(meta["threshold"])
 
@@ -280,13 +285,13 @@ class ServedScorer:
         meta = self.meta
         if meta["mode"] == "patch":
             maps = self.engine.score_patch_maps(
-                im.normalize_imagenet(x), self.bank, dim=int(meta["patch_dim"]),
+                im.normalize_imagenet(x), self.knn_bank, dim=int(meta["patch_dim"]),
                 stride=int(meta["stride"]), k=self.k, upsample_to=meta["upsample_to"],
             )
             return (maps,)
         with torch.inference_mode():
             logits, emb = self.engine.predict_batch(im.normalize_imagenet(x))
-            scores = knn_cosine_scores(emb, self.bank, k=self.k)
+            scores = knn_cosine_scores(emb, self.knn_bank, k=self.k)
             labels = (scores > self.threshold).to(torch.int32)
         return scores, labels, logits
 

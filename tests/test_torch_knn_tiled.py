@@ -96,3 +96,67 @@ def test_cuda_wrappers_refuse_cpu_tensors():
         knn.knn_cosine_scores_cuda(q, b, k=3)
     with pytest.raises(ValueError, match="k="):
         knn.knn_cosine_scores_tiled_plain(q, b[:2], k=3)
+
+
+@pytest.mark.parametrize("d", [32, 100, 512])
+def test_prepared_bank_is_the_jax_split_of_the_normalised_rows(d):
+    """TiledBank's hi/lo are ssad_tpu's _split_bf16x2 of the same
+    normalised rows, bit for bit, zero-padded to whole 64-deep slices."""
+    rng = np.random.default_rng(d)
+    bank = torch.from_numpy(rng.standard_normal((300, d)).astype(np.float32))
+    prepared = knn.prepare_tiled_bank(bank)
+    dp = -(-d // 64) * 64
+    assert prepared.hi.shape == prepared.lo.shape == (300, dp) and prepared.dim == d
+    assert prepared.shape == (300, d) and prepared.device == bank.device
+    assert prepared.hi.is_contiguous() and prepared.lo.is_contiguous()
+    unit = knn.l2_normalize(bank).numpy()
+    jhi, jlo = jknn._split_bf16x2(jnp.asarray(unit))
+    for ours, theirs in ((prepared.hi, jhi), (prepared.lo, jlo)):
+        bits = ours[:, :d].view(torch.int16).numpy()
+        np.testing.assert_array_equal(bits, np.asarray(theirs).view(np.int16))
+        assert not torch.any(ours[:, d:].float())
+
+
+@pytest.mark.parametrize("case", ["ragged", "duplicates"])
+@pytest.mark.parametrize("k", [3, 1])
+def test_plain_tiled_from_a_prepared_bank_is_bit_identical(case, k):
+    q, bank = (torch.from_numpy(a) for a in _cases()[case])
+    raw = knn.knn_cosine_scores_tiled_plain(q, bank, k=k)
+    prepared = knn.knn_cosine_scores_tiled_plain(q, knn.prepare_tiled_bank(bank), k=k)
+    assert torch.equal(raw, prepared)
+    assert torch.equal(knn.knn_cosine_scores(q, knn.prepare_tiled_bank(bank), k=k), raw)
+
+
+def test_dispatch_takes_a_prepared_bank_like_the_raw_one(monkeypatch):
+    calls = []
+
+    def sentinel(name):
+        def fn(queries, bank, k=3):
+            calls.append((name, type(bank).__name__))
+            raise AssertionError(name)
+        return fn
+
+    for name in ("knn_cosine_scores_plain", "knn_cosine_scores_tiled_plain",
+                 "knn_cosine_scores_cuda", "knn_cosine_scores_tiled_cuda"):
+        monkeypatch.setattr(knn, name, sentinel(name))
+    rng = np.random.default_rng(3)
+    big = torch.from_numpy(rng.random((knn.PALLAS_MAX_BANK_ROWS + 1, 8), dtype=np.float32))
+    q = torch.from_numpy(rng.random((4, 8), dtype=np.float32))
+    for bank in (big, knn.prepare_tiled_bank(big)):
+        with pytest.raises(AssertionError, match="knn_cosine_scores_tiled_plain"):
+            knn.knn_cosine_scores(q, bank, k=3)
+    assert calls == [("knn_cosine_scores_tiled_plain", "Tensor"),
+                     ("knn_cosine_scores_tiled_plain", "TiledBank")]
+    # a bank the f32 function serves has no prepared form
+    with pytest.raises(ValueError, match="TiledBank"):
+        knn.knn_cosine_scores(q, knn.prepare_tiled_bank(big[:knn.PALLAS_MAX_BANK_ROWS]), k=3)
+
+
+def test_prepare_bank_changes_nothing_on_the_cpu():
+    """Only a CUDA bank the tiled kernel serves is prepared; on the CPU the
+    plain versions take the raw bank."""
+    bank = torch.ones((knn.PALLAS_MAX_BANK_ROWS + 1, 8))
+    small = bank[:10]
+    assert knn.prepare_bank(bank) is bank and knn.prepare_bank(small) is small
+    with pytest.raises(ValueError, match="CUDA"):
+        knn.knn_cosine_scores_tiled_cuda(torch.ones((4, 8)), knn.prepare_tiled_bank(bank), k=3)

@@ -13,7 +13,8 @@ Tolerances:
   boundary;
 * k-NN: 1e-5 absolute against the plain bf16x3 version (the same
   products, f32 summation order), 3e-5 against the f32 function (the
-  split's 2⁻¹⁶ and the dropped ql·bl term).
+  split's 2⁻¹⁶ and the dropped ql·bl term); a raw bank and its TiledBank
+  give the same bits.
 """
 
 import pytest
@@ -86,10 +87,15 @@ def _knn_data(device, n, m, d, seed):
 
 
 def check_tiled(q, b, k):
+    """The kernel from the raw bank and from its TiledBank (the same bits)
+    against the plain bf16x3 version and the f32 function."""
     before = knn.knn_cosine_scores_tiled_cuda.launches
     out = knn.knn_cosine_scores_tiled_cuda(q, b, k=k)
     torch.cuda.synchronize()
     assert knn.knn_cosine_scores_tiled_cuda.launches == before + 1
+    prepared = knn.knn_cosine_scores_tiled_cuda(q, knn.prepare_tiled_bank(b), k=k)
+    torch.cuda.synchronize()
+    assert torch.equal(out, prepared)
     ref = knn.knn_cosine_scores_tiled_plain(q, b, k=k)
     assert out.shape == ref.shape and out.dtype == torch.float32
     assert torch.max(torch.abs(out - ref)).item() <= KNN_TOL
@@ -111,3 +117,24 @@ def test_tiled_kernel_counts_duplicates_across_tiles_and_splits(cuda_device):  #
     q = base[:16] + 1e-3 * _knn_data(cuda_device, 16, 1, 512, 2)[0]
     # rows 0..299 again at the end: another 128-row tile and another split
     check_tiled(q, torch.cat([base, base[:300]]), 3)
+
+
+@pytest.mark.parametrize("k", [1, 3])
+def test_tiled_kernel_near_duplicates_at_cos_one(cuda_device, k):  # noqa: F811
+    """Queries are bank rows plus 1e-4 noise, so each query's best
+    similarity is within ~1e-8 of 1: the regime where the tensor cores'
+    own f32 accumulation lost low bits (the kernel adds each 64-deep
+    group's fresh accumulator into the running sum with IEEE adds)."""
+    bank, _ = _knn_data(cuda_device, 29435, 1, 512, 3)
+    q = bank[:841] + 1e-4 * _knn_data(cuda_device, 841, 1, 512, 4)[0]
+    check_tiled(q, bank, k)
+
+
+def test_tiled_kernel_back_to_back_calls_are_bit_identical(cuda_device):  # noqa: F811
+    q, b = _knn_data(cuda_device, 6728, 29435, 512, 5)
+    prepared = knn.prepare_tiled_bank(b)
+    first = knn.knn_cosine_scores_tiled_cuda(q, prepared, k=3)
+    second = knn.knn_cosine_scores_tiled_cuda(q, prepared, k=3)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
+    assert torch.equal(first, knn.knn_cosine_scores(q, prepared, k=3))
