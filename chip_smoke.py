@@ -66,7 +66,22 @@ failure; the script exits 0 only when all pass):
    embeddings through the plain tiled k-NN to 1e-5, every heatmap is a
    256×256 PNG, and the f32 model's patch embeddings on the card match
    the CPU port's to 1e-3.
-5. Print one JSON line of kernel records (all three kernels), the card
+5. Drive the CutPaste pretext synthesizer (the trainer's batch maker) at
+   DataConfig's batch of 96: a seeded 256² MVTec-layout tree of 12
+   train-good PNGs per category (bottle, hazelnut, screw, carpet);
+   ``prepare_pretext_data`` (masks by OpenCV or by the numpy path: the
+   line says which), then five cases: bottle, hazelnut (per-image masks)
+   and carpet (cut pool) at image level on 256² canvases, bottle and screw
+   (pre-crop, per-image masks) in patch mode on 64² crops.  Per case:
+   inputs uploaded once; draws on the host, synthesis on the card; the
+   same draws through the port on the CPU (labels and images equal, bit
+   for bit); one batch under
+   ``torch.cuda.set_sync_debug_mode("error")`` (no host sync); the median
+   ms per batch over 20 warm batches (CUDA events), with and without the
+   draw + upload step, and images/s; the device busy share of one batch
+   under the profiler.  Then ``cli qa`` in process on the card.  No
+   kernel of the port lies on this path.
+6. Print one JSON line of kernel records (all three kernels), the card
    line again, and the final {"ok": true, "device": ...} line.
 """
 
@@ -101,6 +116,10 @@ IMSIZE, BATCH, BANK_ROWS = 256, 8, 1000
 #: patch mode: 63 train-good images (50 train + 13 val), 841 windows each
 PATCH_IMAGES, NORMALITY_IMAGES, PATCH_REQUESTS = 63, 50, 16
 WINDOWS = 841
+#: synthesis: train-good PNGs per category, timed batches
+SYNTH_IMAGES, SYNTH_TIMED = 12, 20
+SYNTH_CASES = (("bottle", False), ("hazelnut", False), ("carpet", False), ("bottle", True),
+               ("screw", True))
 
 
 def fail(msg: str) -> None:
@@ -782,6 +801,179 @@ def drive_patch_path(device, work: Path, seed: int = 1):
     return launches, serving
 
 
+def write_synth_tree(root: Path, seed: int = 3) -> None:
+    """A seeded MVTec-layout tree of 256² train-good PNGs: a bright disc on
+    a noisy gradient for the objects (moving from image to image for the
+    non-fixed hazelnut and screw), seeded noise for the carpet texture."""
+    from PIL import Image
+
+    rng = np.random.default_rng(seed)
+    yy, xx = np.mgrid[0:IMSIZE, 0:IMSIZE]
+    for cat in ("bottle", "hazelnut", "screw", "carpet"):
+        good = root / cat / "train" / "good"
+        good.mkdir(parents=True)
+        for i in range(SYNTH_IMAGES):
+            if cat == "carpet":
+                img = rng.integers(70, 130, (IMSIZE, IMSIZE, 3)).astype(np.uint8)
+            else:
+                img = (synthetic_images(rng, 1)[0] * 160).astype(np.uint8)
+                dy, dx = (0, 0) if cat == "bottle" else (8 * (i % 5) - 16, 6 * (i % 7) - 18)
+                disc = (yy - 128 - dy) ** 2 + (xx - 128 - dx) ** 2 < 70**2
+                img[disc] = np.clip(img[disc].astype(int) + 80, 0, 255).astype(np.uint8)
+            Image.fromarray(img).save(good / f"{i:03d}.png")
+
+
+def device_events(prof):
+    """(name, start_us, end_us) of every device-side event in a trace."""
+    import torch
+
+    return [(e.name, e.time_range.start, e.time_range.end) for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA]
+
+
+def busy_us(events) -> float:
+    """Length of the union of the events' intervals."""
+    total, cur_start, cur_end = 0.0, None, None
+    for _, s, e in sorted(events, key=lambda t: t[1]):
+        if cur_end is None or s > cur_end:
+            if cur_end is not None:
+                total += cur_end - cur_start
+            cur_start, cur_end = s, e
+        else:
+            cur_end = max(cur_end, e)
+    if cur_end is not None:
+        total += cur_end - cur_start
+    return total
+
+
+def drive_synthesis(device, work: Path) -> dict:
+    """Phase 5: the pretext synthesizer at DataConfig's batch, five cases."""
+    import contextlib
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from ssad_tpu_torch import cli
+    from ssad_tpu_torch.config import DataConfig
+    from ssad_tpu_torch.data import masks, mvtec
+    from ssad_tpu_torch.data import synthetic as syn
+    from ssad_tpu_torch.ops import image as im
+
+    cfg = DataConfig()
+    batch = cfg.batch_size
+    root = work / "synth_mvtec"
+    t0 = time.perf_counter()
+    write_synth_tree(root)
+    print(f"synth data: {4 * SYNTH_IMAGES} PNGs in {time.perf_counter() - t0:.2f} s, "
+          f"mask path {masks.mask_backend()}", flush=True)
+    records = {}
+    for subject, patch in SYNTH_CASES:
+        case = f"{subject}_{'patch' if patch else 'image'}"
+        t0 = time.perf_counter()
+        data = mvtec.prepare_pretext_data(root, subject, imsize=cfg.imsize,
+                                          val_fraction=cfg.train_val_split, seed=cfg.seed,
+                                          patch_localization=patch)
+        prepare_s = time.perf_counter() - t0
+        spec = syn.SynthSpec(subject=subject, imsize=cfg.imsize, patch_localization=patch,
+                             patch_size=cfg.patch_size)
+        idx = np.random.default_rng(0).integers(0, data.train_images.shape[0], batch)
+        if spec.is_non_fixed:
+            host = (data.train_images[idx], data.cut_pool, data.train_masks[idx],
+                    data.train_coords[idx], data.train_counts[idx])
+        else:
+            host = (data.train_images[idx], data.cut_pool, data.fixed_mask, data.fixed_coords,
+                    np.int32(data.fixed_count))
+        host = [torch.from_numpy(np.asarray(a)) for a in host]
+        dev = [t.to(device) for t in host]  # the one upload of the inputs
+        gen = torch.Generator().manual_seed(0)
+        n_cut = data.cut_pool.shape[0]
+        draws = syn.draw(spec, batch, gen, n_cut=n_cut)
+        x, y, _ = syn.synthesize(spec, draws.to(device), *dev)
+        torch.cuda.synchronize()
+        x_cpu, y_cpu, _ = syn.synthesize(spec, draws, *host)
+        side = spec.canvas[0]
+        if tuple(x.shape) != (batch, side, side, 3) or not bool(torch.isfinite(x).all()):
+            fail(f"synth {case}: output {tuple(x.shape)}, finite={bool(torch.isfinite(x).all())}")
+        if not torch.equal(y.cpu(), y_cpu):
+            fail(f"synth {case}: card and CPU labels differ from the same draws")
+        diff = (im.denormalize_imagenet(x).cpu() - im.denormalize_imagenet(x_cpu)).abs()
+        if not torch.equal(x.cpu(), x_cpu):
+            fail(f"synth {case}: card and CPU images differ from the same draws "
+                 f"(max|d| {float(diff.max())} denormalised)")
+
+        # one batch with its inputs on the card and no host sync
+        ready = syn.draw(spec, batch, gen, n_cut=n_cut).to(device)
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            syn.synthesize(spec, ready, *dev)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        torch.cuda.synchronize()
+
+        # ms per batch: synthesis alone (draws uploaded beforehand), and
+        # with the host draw and its upload
+        uploaded = [syn.draw(spec, batch, gen, n_cut=n_cut).to(device) for _ in range(SYNTH_TIMED)]
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+
+        def timed(step):
+            torch.cuda.synchronize()
+            start.record()
+            step()
+            end.record()
+            end.synchronize()
+            return start.elapsed_time(end)
+
+        synth_ms = [timed(lambda d=d: syn.synthesize(spec, d, *dev)) for d in uploaded]
+        full_ms = [timed(lambda: syn.synthesize(
+            spec, syn.draw(spec, batch, gen, n_cut=n_cut).to(device), *dev))
+            for _ in range(SYNTH_TIMED)]
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            syn.synthesize(spec, uploaded[0], *dev)
+            torch.cuda.synchronize()
+            wall_us = (time.perf_counter() - t0) * 1e6
+        events = device_events(prof)
+        busy = busy_us(events)
+        by_name = {}
+        for name, t_start, t_end in events:
+            by_name[name] = by_name.get(name, 0.0) + t_end - t_start
+        rec = {
+            "subject": subject, "patch_mode": patch, "canvas": side, "batch": batch,
+            "mask_path": masks.mask_backend(), "prepare_s": prepare_s,
+            "per_image_masks": spec.is_non_fixed,
+            "label_counts": np.bincount(y.cpu().numpy(), minlength=4).tolist(),
+            "cpu_max_abs": float(diff.max()),
+            "ms_per_batch": float(np.median(synth_ms)),
+            "ms_per_batch_with_draw": float(np.median(full_ms)),
+            "images_per_s": batch / float(np.median(synth_ms)) * 1e3,
+            "images_per_s_with_draw": batch / float(np.median(full_ms)) * 1e3,
+            "ms_sorted": sorted(synth_ms),
+            "profiled_wall_us": wall_us, "device_busy_us": busy, "busy_share": busy / wall_us,
+            "device_events": len(events),
+            "top_device_us": [[n[:60], us] for n, us in
+                              sorted(by_name.items(), key=lambda kv: -kv[1])[:5]],
+        }
+        records[case] = rec
+        print(f"synth {case}: {json.dumps(rec)}", flush=True)
+
+    # the cli qa entry point on the card (its default device)
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(["qa", "--dataset-dir", str(root), "--subject", "bottle",
+                       "--outputs-dir", str(work / "qa")])
+    qa_s = time.perf_counter() - t0
+    if rc != 0:
+        fail(f"cli qa returned {rc}")
+    qa = json.loads(buf.getvalue().strip().splitlines()[-1])
+    if sum(qa["label_counts"]) != cli.QA_BATCH or not Path(qa["grid"]).is_file():
+        fail(f"cli qa: {qa}")
+    print(f"qa: {json.dumps({**qa, 'seconds': qa_s})}", flush=True)
+    return records
+
+
 def main() -> int:
     try:
         import torch
@@ -822,6 +1014,7 @@ def main() -> int:
     try:
         launches = drive_serving_path(device, work)
         patch_launches, _ = drive_patch_path(device, work)
+        drive_synthesis(device, work)
     finally:
         shutil.rmtree(work, ignore_errors=True)
 

@@ -48,32 +48,6 @@ sys.path.insert(0, str(ROOT))
 import chip_smoke  # noqa: E402  (repo root on sys.path first)
 
 
-def device_events(prof):
-    """(name, start_us, end_us) of every device-side event in a trace."""
-    import torch
-
-    out = []
-    for e in prof.events():
-        if e.device_type == torch.autograd.DeviceType.CUDA:
-            out.append((e.name, e.time_range.start, e.time_range.end))
-    return out
-
-
-def busy_us(events) -> float:
-    """Length of the union of the events' intervals."""
-    total, cur_start, cur_end = 0.0, None, None
-    for _, s, e in sorted(events, key=lambda t: t[1]):
-        if cur_end is None or s > cur_end:
-            if cur_end is not None:
-                total += cur_end - cur_start
-            cur_start, cur_end = s, e
-        else:
-            cur_end = max(cur_end, e)
-    if cur_end is not None:
-        total += cur_end - cur_start
-    return total
-
-
 def group(name: str) -> str:
     if "stem_pool" in name:
         return "stem_kernel"
@@ -108,7 +82,7 @@ def profile(fn, calls: int, rows: int = 0):
         if rows and e.device_type == torch.autograd.DeviceType.CPU
         and any(s and s[0] == rows for s in (e.input_shapes or []))
     )
-    return device_events(prof), wall_ms, sized / calls
+    return chip_smoke.device_events(prof), wall_ms, sized / calls
 
 
 def breakdown(scorer, x, calls: int, section: dict, rows: int = 0) -> None:
@@ -119,7 +93,7 @@ def breakdown(scorer, x, calls: int, section: dict, rows: int = 0) -> None:
     for name, s, e in events:
         by_group[group(name)] = by_group.get(group(name), 0.0) + (e - s) / calls
         by_name[name] = by_name.get(name, 0.0) + (e - s) / calls
-    busy = busy_us(events) / calls
+    busy = chip_smoke.busy_us(events) / calls
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:12]
     print(json.dumps({
         **section, "section": "served_batch", "batch": chip_smoke.BATCH, "calls": calls,

@@ -34,3 +34,11 @@ NUM_PRETEXT_CLASSES = len(PRETEXT_CLASSES)
 #: ImageNet normalization constants (reference datasets.py:430-433).
 IMAGENET_MEAN = (0.485, 0.456, 0.406)
 IMAGENET_STD = (0.229, 0.224, 0.225)
+
+
+def is_texture(subject: str) -> bool:
+    return subject in TEXTURES
+
+
+def is_non_fixed_object(subject: str) -> bool:
+    return subject in NON_FIXED_OBJECTS

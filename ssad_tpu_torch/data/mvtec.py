@@ -3,21 +3,27 @@ arrays of one subject.
 
 Counterpart of ssad_tpu/data/mvtec.py:25-38 (load_image), :53-63
 (load_stack, its PIL path), :90-102 (train_val_split) and :105-217
-(PretextData, prepare_pretext_data).  It fills the fields patch
-normality and the export's calibration read; the cut pool and the
-object masks of the synthesis engine, and the native threaded loader,
-wait for the synthesis slice.
+(PretextData, prepare_pretext_data: the split images with the cut pool
+and object masks the pretext synthesizer reads).  ``load_split`` is the
+split images alone, which is all the patch export reads; ``data.masks``
+(OpenCV) is imported only where masks are made.  The native threaded
+loader waits for the training slice; the test-set loaders for
+the evaluation slice.
 """
 
 from __future__ import annotations
 
 import dataclasses
 from pathlib import Path
-from typing import List, Sequence, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 
+from ssad_tpu_torch import constants
+from ssad_tpu_torch.config import DataConfig
 from ssad_tpu_torch.utils import filesystem as fs
+
+_DATA = DataConfig()
 
 
 def load_image(path, imsize: Tuple[int, int]) -> np.ndarray:
@@ -50,31 +56,131 @@ def train_val_split(
 
 
 @dataclasses.dataclass
+class SplitImages:
+    """The train-good images of one subject, split into train and val.
+
+    As in the JAX package, train trains and val validates (the reference
+    swaps the two lists, datasets.py:475-489; that quirk is not kept)."""
+
+    subject: str
+    imsize: Tuple[int, int]
+    files: List[str]  # every train-good file, before the split
+    train_images: np.ndarray  # (Nt, H, W, 3) float32
+    val_images: np.ndarray  # (Nv, H, W, 3)
+
+
+@dataclasses.dataclass
 class PretextData:
-    """The decoded train-good images of one subject, split train/val."""
+    """Everything the pretext synthesizer needs for one subject: the split
+    images of ``SplitImages``, the cut pool and the object masks."""
 
     subject: str
     imsize: Tuple[int, int]
     train_images: np.ndarray  # (Nt, H, W, 3) float32
     val_images: np.ndarray  # (Nv, H, W, 3)
+    cut_pool: np.ndarray  # (K, H, W, 3) first train-good image per category
+    fixed_mask: np.ndarray  # (H, W) float {0,1}
+    fixed_coords: np.ndarray  # (H·W, 2) int32
+    fixed_count: int
+    # per-image masks of NON_FIXED_OBJECTS subjects (datasets.py:232-235);
+    # in patch mode the coordinates are 1-row placeholders
+    train_masks: Optional[np.ndarray] = None  # (Nt, H, W)
+    train_coords: Optional[np.ndarray] = None  # (Nt, H·W, 2) int32
+    train_counts: Optional[np.ndarray] = None  # (Nt,)
+    val_masks: Optional[np.ndarray] = None
+    val_coords: Optional[np.ndarray] = None
+    val_counts: Optional[np.ndarray] = None
 
 
-def prepare_pretext_data(
+def _image_masks(images: np.ndarray, imsize: Tuple[int, int], patch_localization: bool):
+    """Per-image (masks, coords, counts).  In patch mode the synthesizer
+    samples from the cropped mask on the device, so the (N, H·W, 2)
+    coordinate stacks are never read: 1-row placeholders stand in."""
+    from ssad_tpu_torch.data import masks as masks_mod
+
+    coord_rows = 1 if patch_localization else imsize[0] * imsize[1]
+    ms, cs, ns = [], [], []
+    for img in images:
+        m = masks_mod.object_mask((img * 255).astype(np.uint8))
+        if patch_localization:
+            c, n = np.zeros((1, 2), np.int32), 0
+        else:
+            c, n = masks_mod.pack_coords(m)
+        ms.append(m.astype(np.float32))
+        cs.append(c)
+        ns.append(n)
+    if not ms:
+        return (np.zeros((0,) + tuple(imsize), np.float32),
+                np.zeros((0, coord_rows, 2), np.int32), np.zeros((0,), np.int32))
+    return np.stack(ms), np.stack(cs), np.asarray(ns, np.int32)
+
+
+def load_split(
     dataset_dir: str | Path,
     subject: str,
-    imsize: Tuple[int, int] = (256, 256),
-    val_fraction: float = 0.2,
-    seed: int = 0,
-) -> PretextData:
-    """Discover, decode and split ``<dataset_dir>/<subject>/train/good``."""
+    imsize: Tuple[int, int] = _DATA.imsize,
+    val_fraction: float = _DATA.train_val_split,
+    seed: int = _DATA.seed,
+) -> SplitImages:
+    """Discover, decode and split the train-good images of one subject of
+    an MVTec-layout tree (reference PretextTaskDatamodule.prepare_filenames,
+    datasets.py:438-466; without the file-list duplication, :447-457)."""
+    imsize = tuple(imsize)
     subject_dir = Path(dataset_dir) / subject
     files = fs.train_good_images(subject_dir)
     if not files:
         raise FileNotFoundError(f"no train images under {subject_dir}/train/good")
     train_files, val_files = train_val_split(files, val_fraction, seed)
-    return PretextData(
+    return SplitImages(subject=subject, imsize=imsize, files=files,
+                       train_images=load_stack(train_files, imsize),
+                       val_images=load_stack(val_files, imsize))
+
+
+def prepare_pretext_data(
+    dataset_dir: str | Path,
+    subject: str,
+    imsize: Tuple[int, int] = _DATA.imsize,
+    val_fraction: float = _DATA.train_val_split,
+    seed: int = _DATA.seed,
+    patch_localization: bool = _DATA.patch_localization,
+) -> PretextData:
+    """``load_split`` plus the cut pool and the object masks of
+    PretextTaskDataset's setup (datasets.py:166-206)."""
+    from ssad_tpu_torch.data import masks as masks_mod
+
+    split = load_split(dataset_dir, subject, imsize, val_fraction, seed)
+    imsize = split.imsize
+    root = Path(dataset_dir)
+
+    # cut pool: the first train-good image of every category (datasets.py:189-193)
+    pool = []
+    for cat in fs.list_categories(root):
+        cat_files = fs.train_good_images(root / cat)
+        if cat_files:
+            pool.append(load_image(cat_files[0], imsize))
+    cut_pool = np.stack(pool) if pool else split.train_images[:1]
+
+    # the subject's fixed mask, from its first image (datasets.py:195-206)
+    if constants.is_texture(subject):
+        fixed_mask = np.ones(imsize, np.uint8)
+    else:
+        first_u8 = (load_image(split.files[0], imsize) * 255).astype(np.uint8)
+        fixed_mask = masks_mod.subject_mask(first_u8, subject)
+    fixed_coords, fixed_count = masks_mod.pack_coords(fixed_mask)
+
+    data = PretextData(
         subject=subject,
-        imsize=tuple(imsize),
-        train_images=load_stack(train_files, imsize),
-        val_images=load_stack(val_files, imsize),
+        imsize=imsize,
+        train_images=split.train_images,
+        val_images=split.val_images,
+        cut_pool=cut_pool,
+        fixed_mask=fixed_mask.astype(np.float32),
+        fixed_coords=fixed_coords,
+        fixed_count=fixed_count,
     )
+    if constants.is_non_fixed_object(subject):
+        data.train_masks, data.train_coords, data.train_counts = _image_masks(
+            split.train_images, imsize, patch_localization)
+        data.val_masks, data.val_coords, data.val_counts = _image_masks(
+            split.val_images, imsize, patch_localization)
+    return data

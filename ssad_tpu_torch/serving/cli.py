@@ -15,10 +15,10 @@ import json
 from pathlib import Path
 
 
-def _add_device(p) -> None:
+def add_device_flag(p) -> None:
     p.add_argument("--device", default=None, choices=["cuda", "cpu"],
-                   help="where the model and the k-NN kernel run (default: "
-                        "cuda; without a card only --device cpu works)")
+                   help="where the command runs (default: cuda; without a "
+                        "card only --device cpu works)")
 
 
 def cmd_export(args) -> int:
@@ -234,7 +234,7 @@ def register(sub) -> None:
                     help="seed of the 70/30 calibration split")
     ex.add_argument("--allow-pickle", action="store_true",
                     help="permit full unpickling of a checkpoint you trust")
-    _add_device(ex)
+    add_device_flag(ex)
     ex.set_defaults(fn=cmd_export)
 
     sv = sub.add_parser("serve", help="serve artifacts over HTTP (dynamic batching)")
@@ -249,7 +249,7 @@ def register(sub) -> None:
                     help="requests beyond this many pending get HTTP 503; 0 disables")
     sv.add_argument("--score-timeout", type=float, default=60.0,
                     help="per-request scoring timeout in seconds")
-    _add_device(sv)
+    add_device_flag(sv)
     sv.set_defaults(fn=cmd_serve)
 
     sc = sub.add_parser("score", help="offline scoring of image files/folders")
@@ -264,5 +264,5 @@ def register(sub) -> None:
     sc.add_argument("--heatmaps", action="store_true",
                     help="patch artifacts: also write one grayscale PNG per map "
                          "under <out>/heatmaps")
-    _add_device(sc)
+    add_device_flag(sc)
     sc.set_defaults(fn=cmd_score)

@@ -174,8 +174,8 @@ def export_checkpoint(
 
 
 def _patch_normality(engine, dataset_dir, subject, imsize, n_images, patch_dim, stride, seed):
-    """(patch embeddings of the subject's training images, PretextData)."""
-    from ssad_tpu_torch.data.mvtec import prepare_pretext_data
+    """(patch embeddings of the subject's training images, SplitImages)."""
+    from ssad_tpu_torch.data.mvtec import load_split
     from ssad_tpu_torch.evaluation.inference import normality_embeddings
 
     if dataset_dir is None or not subject:
@@ -184,7 +184,7 @@ def _patch_normality(engine, dataset_dir, subject, imsize, n_images, patch_dim, 
             "subject (to re-embed the training images) or an explicit `normality` "
             "array; the checkpoint's memory bank holds whole-image embeddings"
         )
-    data = prepare_pretext_data(dataset_dir, subject, imsize=imsize)
+    data = load_split(dataset_dir, subject, imsize=imsize)
     emb = normality_embeddings(
         engine, None, data.train_images, batch_size=4, min_bank_rows=10**9,
         max_images=n_images, seed=seed, patch_localization=True, patch_dim=patch_dim,

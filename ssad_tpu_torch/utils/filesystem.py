@@ -1,7 +1,7 @@
 """Dataset discovery on the MVTec-AD folder layout.
 
 Counterpart of ssad_tpu/utils/filesystem.py:22-43 (the listing helpers
-the patch-mode export reads).  Per category::
+the patch-mode export and the synthesizer's cut pool read).  Per category::
 
     <root>/<category>/train/good/*.png
 """
@@ -10,6 +10,14 @@ from __future__ import annotations
 
 from pathlib import Path
 from typing import List, Sequence
+
+
+def list_categories(dataset_dir: str | Path) -> List[str]:
+    """Sorted sub-directories of the dataset root (one per category)."""
+    root = Path(dataset_dir)
+    if not root.is_dir():
+        return []
+    return sorted(p.name for p in root.iterdir() if p.is_dir())
 
 
 def list_images(directory: str | Path, exts: Sequence[str] = (".png",)) -> List[str]:

@@ -1,0 +1,40 @@
+"""Whole-engine parity of the port's synthesizer with the JAX package's:
+patch mode (carpet): a 32² random crop of canvas and mask, an independent crop of the cut source, mask coordinates from the cropped mask's prefix sum on the device.
+
+The JAX engine's keys are read into the port's draws (tests/_torch_synth.py);
+both engines get the same seeded numpy inputs (64² images, batch 24).
+Tolerance: labels equal; per sample, ≥ 99.8 % of the denormalised pixel
+values within 2⁻⁷ (bf16 roundings XLA fuses away, .5 ties of shear shifts,
+walk ranks truncated next to an integer); the largest |Δ| is printed.
+"""
+
+import dataclasses
+
+import numpy as np
+import torch
+from _torch_synth import IMSIZE, PATCH, PIXEL_SHARE, compare_engines
+
+from ssad_tpu_torch.data.synthetic import SynthSpec
+
+torch.set_num_threads(1)
+SPEC = SynthSpec(subject="carpet", imsize=(IMSIZE, IMSIZE), patch_localization=True,
+                 patch_size=PATCH)
+
+
+def test_patch_regime_matches_jax():
+    y, ref_y, share, largest = compare_engines(SPEC)
+    print(f"patch: largest |d| {largest:.6f}, worst sample share {share.min():.5f}")
+    np.testing.assert_array_equal(y, ref_y)
+    assert set(ref_y.tolist()) == {0, 1, 2, 3}
+    assert share.min() >= PIXEL_SHARE, (share.min(), largest)
+
+
+def test_a_missing_scar_copy_fails_the_limit():
+    """Planted fault: one scar copy fewer in the port's draws must take
+    every scar sample below the limit, and no other sample."""
+    y, _, share, _ = compare_engines(
+        SPEC, fault=lambda d: dataclasses.replace(d, scar_copies=d.scar_copies - 1))
+    scar = y == 2
+    print(f"patch, one scar copy fewer: scar samples' shares {np.round(share[scar], 5)}")
+    assert scar.any() and (share[scar] < PIXEL_SHARE).all(), share[scar]
+    assert (share[~scar] >= PIXEL_SHARE).all()
