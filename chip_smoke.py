@@ -81,7 +81,31 @@ failure; the script exits 0 only when all pass):
    draw + upload step, and images/s; the device busy share of one batch
    under the profiler.  Then ``cli qa`` in process on the card.  No
    kernel of the port lies on this path.
-6. Print one JSON line of kernel records (all three kernels), the card
+6. Drive two-phase training at full width: PeraNet/ResNet-18, bf16
+   backbone, 256² batch 96, ``AugConfig`` defaults, bottle (its fixed-pose
+   affine) from phase 5's tree (9 train, 3 val PNGs).  Launch counts are
+   reset just before and read just after the main path: ``cli train``
+   (1 projection + 3 fine-tune epochs, 8 steps an epoch; the bank fills
+   in fine-tune epoch 2), ``cli export`` of the checkpoint without
+   ``--imsize`` (the header's imsize and subject from its TrainConfig;
+   the fit runs csrc/knn.cu) and a ServedScorer on 8 of the tree's
+   images, whose scores must equal the plain-k-NN path's to 1e-5.  Fails
+   when the bank holds fewer than 16 rows.  Then: one f32 fine-tune step
+   (TF32 off) on the card against the CPU port from the same weights and
+   draws (loss, logits, gradients, every parameter and running statistic,
+   the filled bank and a given-mask insert; the largest |Δ| of each
+   printed), at 64² batch 8 on tests/test_torch_train_cuda.py's disc
+   images under the CPU parity limits, and at 256² batch 16 on the tree
+   under fixed wider limits (ssad_tpu_torch/train/step_parity.py says
+   why); at each, the card step with TF32 on, a planted fault, must break
+   the limits; one
+   fill step under ``set_sync_debug_mode("error")``; and per stage
+   (projection; fine-tune with the fill) the median ms per step over 10
+   warm steps by CUDA events with and without the host draw + upload,
+   images/s, the device busy share of one step under the profiler and
+   its device µs by group (synthesis, forward, backward, optimizer,
+   bank fill + insert).  No TPU kernel lies on the train step.
+7. Print one JSON line of kernel records (all three kernels), the card
    line again, and the final {"ok": true, "device": ...} line.
 """
 
@@ -120,6 +144,9 @@ WINDOWS = 841
 SYNTH_IMAGES, SYNTH_TIMED = 12, 20
 SYNTH_CASES = (("bottle", False), ("hazelnut", False), ("carpet", False), ("bottle", True),
                ("screw", True))
+#: training at DataConfig's batch of 96: 9 train PNGs duplicated to 774 →
+#: 8 steps an epoch
+TRAIN_BATCH, TRAIN_MIN_LEN, TRAIN_MIN_BANK, TRAIN_TIMED, TRAIN_PARITY_BATCH = 96, 768, 16, 10, 16
 
 
 def fail(msg: str) -> None:
@@ -974,6 +1001,205 @@ def drive_synthesis(device, work: Path) -> dict:
     return records
 
 
+def train_step_parity(device, data, batch: int, limits: dict) -> dict:
+    """One f32 fine-tune step on the card vs the CPU port (TF32 off), from
+    the same weights and draws, held to the fixed ``limits``
+    (ssad_tpu_torch/train/step_parity.py); then the card step again with
+    TF32 on, a planted device-side fault that must break them."""
+    import torch
+
+    from ssad_tpu_torch.train import step_parity as sp
+
+    h, _ = data.imsize
+    cfg = sp.step_config(data.imsize, batch)
+    t0 = time.perf_counter()
+    host = sp.step_record(cfg, data, "cpu")
+    card = sp.step_record(cfg, data, device)
+    rec = {"canvas": h, "batch": batch, **sp.step_deltas(card, host),
+           "bank_rows": int(host["bank"][2]), "given_rows": int(host["given"][2])}
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = True
+    try:
+        planted = sp.step_deltas(sp.step_record(cfg, data, device), host)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    rec["limits"], rec["tf32_on"] = limits, planted
+    rec["tf32_on_beyond"], rec["seconds"] = sp.beyond(planted, limits), time.perf_counter() - t0
+    print(f"train parity {h}² batch {batch}: {json.dumps(rec)}", flush=True)
+    bad = sp.beyond(rec, limits)
+    if bad:
+        fail(f"train step card vs cpu at {h}² batch {batch} beyond its limits in {bad}")
+    if not rec["tf32_on_beyond"]:
+        fail(f"train step at {h}² batch {batch}: TF32 on stays within the limits")
+    return rec
+
+
+def time_train_stage(device, trainer, stage: str) -> dict:
+    """ms per step (CUDA events; median of TRAIN_TIMED warm steps) with the
+    draws uploaded beforehand and with the host draw + upload, images/s,
+    and one profiled step: busy share and device µs by group."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from ssad_tpu_torch.train.trainer import STEP_GROUPS, stage_generator
+
+    fill = stage == "fine_tune"
+    state = trainer.init_state(stage, seed=0)
+    dd = trainer.device_data("train")
+    gen = stage_generator(0, 2)
+    for _ in range(3):
+        state, _ = trainer.train_step(state, trainer.upload_draws(gen, dd), dd, fill)
+    uploaded = [trainer.upload_draws(gen, dd) for _ in range(TRAIN_TIMED + 1)]
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+
+    def timed(step):
+        torch.cuda.synchronize()
+        start.record()
+        step()
+        end.record()
+        end.synchronize()
+        return start.elapsed_time(end)
+
+    holder = [state]
+
+    def run(up):
+        holder[0], _ = trainer.train_step(holder[0], up, dd, fill)
+
+    step_ms = [timed(lambda u=u: run(u)) for u in uploaded[:TRAIN_TIMED]]
+    full_ms = [timed(lambda: run(trainer.upload_draws(gen, dd))) for _ in range(TRAIN_TIMED)]
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run(uploaded[-1])
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    kernels = [e for e in device_events(prof) if e[0] not in STEP_GROUPS]
+    busy = busy_us(kernels)
+    kernel_us = sum(end_us - start_us for _, start_us, end_us in kernels)
+    groups = {g: 0.0 for g in STEP_GROUPS if fill or g != "bank_fill"}
+    for e in prof.events():
+        if e.name in groups and e.device_type == torch.autograd.DeviceType.CPU:
+            groups[e.name] += e.device_time_total
+    # autograd launches the backward's kernels from its own device thread,
+    # outside the step's ranges: backward is every kernel outside the others
+    groups["backward"] = kernel_us - sum(v for k, v in groups.items() if k != "backward")
+    batch = trainer.cfg.data.batch_size
+    return {
+        "stage": stage, "fill": fill, "batch": batch, "canvas": trainer.spec.canvas[0],
+        "ms_per_step": float(np.median(step_ms)),
+        "ms_per_step_with_draw": float(np.median(full_ms)),
+        "images_per_s": batch / float(np.median(step_ms)) * 1e3,
+        "images_per_s_with_draw": batch / float(np.median(full_ms)) * 1e3,
+        "ms_sorted": sorted(step_ms), "ms_with_draw_sorted": sorted(full_ms),
+        "profiled_wall_us": wall_us, "device_busy_us": busy, "busy_share": busy / wall_us,
+        "device_kernels": len(kernels), "device_kernel_us": kernel_us,
+        "device_us_by_group": groups if kernel_us > 0 else "not measured",
+    }
+
+
+def drive_training(device, work: Path) -> dict:
+    """Phase 6: cli train → cli export → served scores, on phase 5's tree."""
+    import contextlib
+
+    import torch
+
+    from ssad_tpu_torch import cli
+    from ssad_tpu_torch.config import DataConfig, TrainConfig
+    from ssad_tpu_torch.data import mvtec
+    from ssad_tpu_torch.data.mvtec import load_image
+    from ssad_tpu_torch.ops import image as im
+    from ssad_tpu_torch.ops import knn
+    from ssad_tpu_torch.serving.export import ServedScorer
+    from ssad_tpu_torch.train import step_parity as sp
+    from ssad_tpu_torch.train.trainer import Trainer, stage_generator
+    from ssad_tpu_torch.utils import filesystem as fs
+    from ssad_tpu_torch.utils.ref_checkpoint import load_checkpoint
+
+    root, out = work / "synth_mvtec", work / "train_out"
+    imgs = np.stack([load_image(p, (IMSIZE, IMSIZE))
+                     for p in fs.train_good_images(root / "bottle")[:BATCH]])
+
+    # ---- the training path: counts to 0 just before, read just after -------
+    knn.knn_cosine_scores_cuda.launches = 0
+    t0 = time.perf_counter()
+    rc = cli.main(["train", "--dataset-dir", str(root), "--subject", "bottle",
+                   "--outputs-dir", str(out), "--imsize", str(IMSIZE),
+                   "--batch-size", str(TRAIN_BATCH), "--projection-epochs", "1",
+                   "--fine-tune-epochs", "3", "--min-dataset-length", str(TRAIN_MIN_LEN)])
+    train_s = time.perf_counter() - t0
+    if rc != 0:
+        fail(f"cli train returned {rc}")
+    ckpt = out / "bottle" / "best_model.ckpt"
+    artifact = out / "bottle_image.ssadpt"
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(["export", "--models-dir", str(out), "--subject", "bottle",
+                       "--batch", str(BATCH), "--out", str(artifact)])
+    export_s = time.perf_counter() - t0
+    if rc != 0:
+        fail(f"cli export of the trained checkpoint returned {rc}")
+    scorer = ServedScorer.from_file(artifact, device)
+    scores, labels, logits = scorer(imgs)
+    launches = knn.knn_cosine_scores_cuda.launches
+    # ---- end of the training path ------------------------------------------
+    _, bank, _, tcfg = load_checkpoint(ckpt)
+    rows = int(bank.count) if bank is not None else 0
+    history = json.loads((out / "bottle" / "history.json").read_text())
+    print(f"train history: {json.dumps(history)}", flush=True)
+    print(f"train checkpoint: {ckpt}, bank rows {rows}, cli train {train_s:.2f} s, "
+          f"export {export_s:.2f} s, knn launches {launches}", flush=True)
+    if rows < TRAIN_MIN_BANK:
+        fail(f"the trained bank holds {rows} rows < {TRAIN_MIN_BANK}")
+    meta = scorer.meta
+    if meta["imsize"] != [IMSIZE, IMSIZE] or meta.get("subject") != "bottle" or (
+            tuple(tcfg.data.imsize), tcfg.data.subject) != ((IMSIZE, IMSIZE), "bottle"):
+        fail(f"export header imsize {meta['imsize']} subject {meta.get('subject')}, "
+             f"TrainConfig {tcfg.data.imsize} {tcfg.data.subject}")
+    if launches < 2:
+        fail(f"knn kernel launches {launches} < fit + one scored batch")
+    x = torch.from_numpy(imgs).to(device)
+    _, emb = scorer.engine.predict_batch(im.normalize_imagenet(x))
+    plain = knn.knn_cosine_scores_plain(emb, scorer.bank, k=scorer.k).cpu().numpy()
+    err = float(np.max(np.abs(plain - scores)))
+    if scores.shape != (BATCH,) or not np.isfinite(logits).all() or not err <= KNN_TOL:
+        fail(f"trained-model scores {scores.shape} vs plain k-NN path: max|d|={err}")
+
+    cfg = DataConfig(subject="bottle", imsize=(IMSIZE, IMSIZE), batch_size=TRAIN_BATCH,
+                     min_dataset_length=TRAIN_MIN_LEN)
+    data = mvtec.prepare_pretext_data(root, "bottle", imsize=cfg.imsize,
+                                      val_fraction=cfg.train_val_split, seed=cfg.seed)
+    record = {"train_s": train_s, "export_s": export_s, "bank_rows": rows,
+              "knn_launches": launches, "served_vs_plain_knn_max_abs": err,
+              "fit_rows": int(scorer.bank.shape[0]), "anomalous": int(labels.sum()),
+              # the card test's step at the CPU limits, and full width on the tree
+              "parity": [train_step_parity(device, sp.disc_data(64), 8, sp.CPU_LIMITS),
+                         train_step_parity(device, data, TRAIN_PARITY_BATCH,
+                                           sp.TREE_256_LIMITS)]}
+
+    # one fill step with its draws uploaded, and no host sync
+    trainer = Trainer(TrainConfig(data=cfg), data, device)
+    state = trainer.init_state("fine_tune", seed=0)
+    dd = trainer.device_data("train")
+    gen = stage_generator(0, 2)
+    state, _ = trainer.train_step(state, trainer.upload_draws(gen, dd), dd, True)
+    uploaded = trainer.upload_draws(gen, dd)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        trainer.train_step(state, uploaded, dd, True)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    print("train no-sync: one fine-tune fill step under set_sync_debug_mode('error')",
+          flush=True)
+
+    for stage in ("projection", "fine_tune"):
+        rec = time_train_stage(device, trainer, stage)
+        record[stage] = rec
+        print(f"train {stage}: {json.dumps(rec)}", flush=True)
+    return record
+
+
 def main() -> int:
     try:
         import torch
@@ -1015,6 +1241,7 @@ def main() -> int:
         launches = drive_serving_path(device, work)
         patch_launches, _ = drive_patch_path(device, work)
         drive_synthesis(device, work)
+        train = drive_training(device, work)
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
@@ -1029,6 +1256,7 @@ def main() -> int:
         "shape": serve["shape"], "k": serve["k"], "path": "image",
         "device_us": serve["device_us"], "fit_device_us": records["fit"]["device_us"],
         "fit_ms": records["fit"]["ms"], "fit_library_ms": records["fit"]["library_ms"],
+        "train_path_launches": train["knn_launches"],
     }]
     tserve, tfit = tiled_records["serve"], tiled_records["fit"]
     kernels.append({
@@ -1059,7 +1287,7 @@ def main() -> int:
         "flipped_share": max(r["flipped_share"] for r in stem_records.values()),
     })
     for rec in kernels:
-        if rec["launches"] < 1:
+        if rec["launches"] < 1 or rec.get("train_path_launches", 1) < 1:
             fail(f"{rec['name']} was not launched on its path")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card_line(), flush=True)

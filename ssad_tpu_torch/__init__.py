@@ -11,20 +11,24 @@ CPU request it raises (utils/device.py).  The kernels of the serving
 paths are CUDA written for Hopper (csrc/knn.cu, csrc/knn_tiled.cu,
 csrc/stem_pool.cu), built with nvcc at first use.
 
-Package map (so far: the image- and patch-mode serving paths):
-  config, constants  — dataclass configuration, MVTec taxonomy
-  utils/             — device resolution, reference-checkpoint I/O,
-                       the JAX-variables → state_dict bridge, dataset
-                       listing
-  ops/               — image normalization/resize/blur ⊗ upsample, window
-                       extraction, the fused stem and k-NN scoring, each
-                       with its kernel
-  models/            — ResNet-18 (with the folded 32×32 stem), PeraNet,
-                       AnomalyDetector
-  train/             — the memory bank's ring view
-  evaluation/        — InferenceEngine (image and patch paths) and the
-                       normality source
-  data/              — image decoding, the train-good split
+Package map (so far: the image- and patch-mode serving paths, the pretext
+synthesizer and two-phase training):
+  config, constants  — dataclass configuration (TrainConfig and its JSON
+                       form), MVTec taxonomy
+  cli                — train, import-ckpt, export, serve, score, qa
+  utils/             — device resolution, reference-checkpoint I/O, the
+                       JAX-state bridge, torchvision backbone weights,
+                       dataset listing
+  ops/               — image ops, window extraction, rasterisers, the fused
+                       stem and k-NN scoring, each with its kernel
+  models/            — ResNet-18 (the folded 32×32 stem, Flax-order
+                       BatchNorm), PeraNet and its init, AnomalyDetector
+  train/             — the memory bank, the stage optimizer, the trainer,
+                       checkpoints, the train step's cross-device check
+  evaluation/        — InferenceEngine (image and patch paths), the
+                       normality source, QA grid and history plots
+  data/              — image decoding, the train-good split, object masks,
+                       the CutPaste synthesizer
   serving/           — export artifact, batching HTTP server, CLI
 """
 

@@ -1,15 +1,18 @@
 """Dataclass configuration: the parts of ssad_tpu/config.py the ported
-slices read (AugConfig; DataConfig without the training-loop fields;
-ModelConfig; EvalConfig.knn_k).
+slices read (AugConfig, DataConfig, ModelConfig, OptimConfig, MeshConfig,
+TrainConfig with its JSON form; EvalConfig.knn_k).
 
 Defaults are the JAX package's, which reproduce the reference's values
-(file:line citations into the reference's src/).
+(file:line citations into the reference's src/).  A ``train_config.json``
+written by either package reads in the other (``TrainConfig.to_json`` /
+``from_json``: the same field names, order and nesting).
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Tuple
+import json
+from typing import Optional, Tuple
 
 
 @dataclasses.dataclass(frozen=True)
@@ -65,14 +68,18 @@ class AugConfig:
 
 @dataclasses.dataclass(frozen=True)
 class DataConfig:
-    """Dataset geometry and batching (reference datasets.py:401-433).  The
+    """Dataset discovery and batching (reference datasets.py:401-433).  The
     defaults of ``data.mvtec.prepare_pretext_data`` / ``load_split``,
     ``data.synthetic.SynthSpec`` and ``cli qa`` are read from here."""
 
+    dataset_dir: str = "dataset"
+    subject: str = "bottle"
     imsize: Tuple[int, int] = (256, 256)
     batch_size: int = 96  # tools.py:212 default
     train_val_split: float = 0.2  # datasets.py:408
     seed: int = 0
+    min_dataset_length: int = 1000  # datasets.py:410
+    duplication: bool = True
     patch_localization: bool = False
     patch_size: int = 64  # training crop in patch mode (datasets.py:174)
 
@@ -88,9 +95,86 @@ class ModelConfig:
     latent_dim: int = 512
     num_classes: int = 4
     memory_bank_size: int = 1000
+    #: rows of a batch considered for the memory-bank fill per step; None
+    #: embeds every accepted y==0 ∧ ŷ==0 row, the reference behaviour
+    #: (models.py:270-275)
+    bank_fill_rows: Optional[int] = None
     #: dtype of the backbone's convolutions and BatchNorms; the head runs
     #: in float32 either way
     compute_dtype: str = "bfloat16"
+    #: the JAX package's space-to-depth stem (a TPU layout of the same
+    #: 7×7/s2 conv); carried so that a train_config.json round-trips, and
+    #: ignored: the port runs the 7×7/s2 conv either way
+    stem_s2d: bool = False
+    #: a torchvision resnet18 state dict (.pth) to start the backbone from;
+    #: None starts from the Lecun-normal init (the reference always starts
+    #: from ImageNet weights, models.py:59)
+    pretrained_backbone: Optional[str] = None
+
+
+@dataclasses.dataclass(frozen=True)
+class OptimConfig:
+    """Two-phase schedule (reference tools.py:213-214, models.py:336-341)."""
+
+    projection_epochs: int = 10
+    projection_lr: float = 0.03
+    fine_tune_epochs: int = 30
+    fine_tune_lr: float = 0.005
+    momentum: float = 0.9
+    weight_decay: float = 5e-4
+    #: best-val-loss copy cadence in fine-tune (tools.py:290)
+    checkpoint_every_n_epochs: int = 5
+    #: validation batches per epoch; None = the full pass (tools.py:284-306)
+    val_batches: Optional[int] = None
+
+
+@dataclasses.dataclass(frozen=True)
+class MeshConfig:
+    """The JAX package's device-mesh layout.  The port trains on one device
+    and only carries this, so that a ``train_config.json`` round-trips."""
+
+    data_axis: int = -1
+    model_axis: int = 1
+
+
+_SECTIONS = {"data": DataConfig, "aug": AugConfig, "model": ModelConfig,
+             "optim": OptimConfig, "mesh": MeshConfig}
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainConfig:
+    data: DataConfig = dataclasses.field(default_factory=DataConfig)
+    aug: AugConfig = dataclasses.field(default_factory=AugConfig)
+    model: ModelConfig = dataclasses.field(default_factory=ModelConfig)
+    optim: OptimConfig = dataclasses.field(default_factory=OptimConfig)
+    mesh: MeshConfig = dataclasses.field(default_factory=MeshConfig)
+    outputs_dir: str = "outputs"
+    seed: int = 0
+
+    def to_json(self) -> str:
+        return json.dumps(dataclasses.asdict(self), indent=2)
+
+    @staticmethod
+    def from_json(s: str) -> "TrainConfig":
+        """Unknown keys are ignored and missing ones take their defaults;
+        JSON lists become tuples."""
+
+        def build(cls, d):
+            kw = {}
+            for f in dataclasses.fields(cls):
+                if f.name not in d:
+                    continue
+                v = d[f.name]
+                kw[f.name] = build(_SECTIONS[f.name], v) if f.name in _SECTIONS else _to_tuple(v)
+            return cls(**kw)
+
+        return build(TrainConfig, json.loads(s))
+
+
+def _to_tuple(v):
+    if isinstance(v, list):
+        return tuple(_to_tuple(x) for x in v)
+    return v
 
 
 @dataclasses.dataclass(frozen=True)

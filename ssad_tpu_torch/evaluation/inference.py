@@ -156,10 +156,10 @@ def load_engine(
 ) -> Tuple[InferenceEngine, Optional[MemoryBank], ModelConfig]:
     """A reference-layout ``best_model.ckpt`` → (engine, bank or None,
     ModelConfig).  The state dict loads with ``strict=True``."""
-    from ssad_tpu_torch.utils.ref_checkpoint import load_reference_checkpoint
+    from ssad_tpu_torch.utils.ref_checkpoint import load_checkpoint
 
     dev = resolve_device(device)
-    state_dict, bank, cfg = load_reference_checkpoint(checkpoint_path, allow_pickle)
+    state_dict, bank, cfg, _ = load_checkpoint(checkpoint_path, allow_pickle)
     model = build_model(cfg)
     model.load_state_dict(state_dict, strict=True)
     return InferenceEngine(model, dev), bank, cfg

@@ -17,7 +17,13 @@ folded 4×4 stem: the same function without the 4× upsampled image
 (ssad_tpu/models/peranet.py:73-87).  ``from_stem`` re-enters after the
 stem's maxpool, for the fused stem kernel (ops/stem_pool.py).  The
 backbone runs in ``compute_dtype``; the taps are averaged in f32 and the
-head runs in f32.
+head runs in f32.  ``train()``/``eval()`` select batch or running
+statistics in every BatchNorm (models/resnet.py).  ``ModelConfig.stem_s2d``
+is read and ignored: the JAX package's space-to-depth stem computes the
+7×7/s2 conv's function, which the port runs as that conv.
+
+``init_model`` draws the JAX package's initial distribution
+(ssad_tpu/models/peranet.py:135-140, Flax defaults), not PyTorch's.
 """
 
 from __future__ import annotations
@@ -28,7 +34,9 @@ import torch
 from torch import nn
 
 from ssad_tpu_torch.config import ModelConfig
-from ssad_tpu_torch.models.resnet import STAGE_CHANNELS, BatchNorm1d, make_backbone
+from ssad_tpu_torch.models.resnet import (
+    STAGE_CHANNELS, BatchNorm1d, FlaxBatchNorm, lecun_normal_, make_backbone,
+)
 from ssad_tpu_torch.ops.image import resize_nearest
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -109,3 +117,20 @@ def build_model(cfg: ModelConfig) -> PeraNet:
         latent_dim=cfg.latent_dim,
         compute_dtype=DTYPES[cfg.compute_dtype],
     )
+
+
+def init_model(model: PeraNet, generator: torch.Generator) -> PeraNet:
+    """Re-initialise ``model`` in place as the JAX ``init_model`` does:
+    Lecun-normal (truncated) conv and dense weights, zero dense biases,
+    BatchNorm scale 1, bias 0, running mean 0 and running variance 1.
+    PyTorch's own init (Kaiming-uniform, a = √5) is another distribution.
+    ``generator``: a CPU ``torch.Generator``; call before moving the model
+    to a device, so every device starts from the same values."""
+    for m in model.modules():
+        if isinstance(m, (nn.Conv2d, nn.Linear)):
+            lecun_normal_(m.weight, generator)
+            if m.bias is not None:
+                nn.init.zeros_(m.bias)
+        elif isinstance(m, FlaxBatchNorm):
+            m.reset_parameters()
+    return model

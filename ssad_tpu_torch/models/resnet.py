@@ -2,15 +2,28 @@
 
 Counterpart of ssad_tpu/models/resnet.py:25-133, :178-258: the 7×7/s2
 stem, its folded 4×4/s1 form for 32×32 inputs (``fold_2x``), and
-``forward_stages``, the re-entry point after the stem's maxpool.  Module
-and parameter names are torchvision's, so a reference
-``feature_extractor.*`` state dict loads with ``strict=True``.
+``forward_stages``, the re-entry point after the stem's maxpool.  The JAX
+package's space-to-depth stem (``ModelConfig.stem_s2d``) computes the same
+function as the 7×7/s2 conv and was a TPU layout trick; the port runs the
+7×7/s2 conv whatever that field says.  Module and parameter names are torchvision's,
+so a reference ``feature_extractor.*`` state dict loads with
+``strict=True``.
 
 Precision follows the JAX model.  With ``compute_dtype=bfloat16`` the
 convolutions take bf16 inputs and weights (the weights stay f32
 parameters and are cast per call, as Flax does), and each BatchNorm
-computes its inference affine in f32 and rounds once to bf16 — Flax's
+computes its affine in f32 and rounds once to bf16 — Flax's
 ``_normalize`` order, (x − mean)·(rsqrt(var + eps)·scale) + bias.
+
+BatchNorm in training mode is Flax's ``nn.BatchNorm(momentum=0.9,
+epsilon=1e-5)`` (flax/linen/normalization.py ``_compute_stats``,
+``_normalize``): batch mean and variance reduced in f32 over every axis
+but the channels, the variance as E[x²] − E[x]² clipped at 0, and the
+running statistics updated as 0.9·running + 0.1·batch with the BIASED
+variance.  PyTorch's own update (``F.batch_norm(training=True)``) uses
+the unbiased variance, n/(n−1) larger, which would move every eval-mode
+embedding and the memory bank away from the JAX package's.  Gradients
+flow through the batch statistics by autograd.
 """
 
 from __future__ import annotations
@@ -34,32 +47,42 @@ class Conv2d(nn.Conv2d):
         return self._conv_forward(x, self.weight.to(x.dtype), None)
 
 
-class _FlaxBatchNorm:
-    """Inference BatchNorm in Flax's arithmetic order, output in
-    ``out_dtype`` (the compute dtype; None keeps the input's).  Training
-    mode waits for the training slice."""
+class FlaxBatchNorm:
+    """BatchNorm in Flax's arithmetic order, output in ``out_dtype`` (the
+    compute dtype; None keeps the input's).  ``train()`` normalises by the
+    batch statistics and updates the running ones; ``eval()`` reads the
+    running ones."""
 
     out_dtype = None
+    #: Flax's momentum: running ← MOMENTUM·running + (1 − MOMENTUM)·batch
+    MOMENTUM = 0.9
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        if self.training:
-            raise NotImplementedError(
-                "training-mode BatchNorm is not ported yet; call .eval() first"
-            )
         dtype = self.out_dtype or x.dtype
         shape = (1, -1) + (1,) * (x.ndim - 2)
-        mul = torch.rsqrt(self.running_var + self.eps) * self.weight
-        y = (x.float() - self.running_mean.view(shape)) * mul.view(shape)
+        if self.training:
+            dims = (0,) + tuple(range(2, x.ndim))
+            x32 = x.float()
+            mean = x32.mean(dims)
+            var = torch.clamp((x32 * x32).mean(dims) - mean * mean, min=0.0)
+            with torch.no_grad():
+                m = self.MOMENTUM
+                self.running_mean.copy_(m * self.running_mean + (1.0 - m) * mean)
+                self.running_var.copy_(m * self.running_var + (1.0 - m) * var)
+        else:
+            mean, var = self.running_mean, self.running_var
+        mul = torch.rsqrt(var + self.eps) * self.weight
+        y = (x.float() - mean.view(shape)) * mul.view(shape)
         return (y + self.bias.view(shape)).to(dtype)
 
 
-class BatchNorm2d(_FlaxBatchNorm, nn.BatchNorm2d):
+class BatchNorm2d(FlaxBatchNorm, nn.BatchNorm2d):
     def __init__(self, num_features: int, out_dtype=None):
         super().__init__(num_features, eps=1e-5, momentum=0.1)
         self.out_dtype = out_dtype
 
 
-class BatchNorm1d(_FlaxBatchNorm, nn.BatchNorm1d):
+class BatchNorm1d(FlaxBatchNorm, nn.BatchNorm1d):
     def __init__(self, num_features: int, out_dtype=None):
         super().__init__(num_features, eps=1e-5, momentum=0.1)
         self.out_dtype = out_dtype
@@ -143,6 +166,17 @@ class ResNet(nn.Module):
         # jnp.mean of a bf16 map: f32 sum, rounded back to the map's dtype
         pooled = x.float().mean(dim=(2, 3)).to(x.dtype).float()
         return pooled, feats
+
+
+def lecun_normal_(weight: torch.Tensor, generator: torch.Generator) -> torch.Tensor:
+    """Flax's ``lecun_normal`` in place: a normal truncated to ±2 of its
+    scale, scaled so that the std is 1/√fan_in (fan_in: every axis but the
+    output one, i.e. I·kh·kw of an OIHW conv, I of an (O, I) dense)."""
+    fan_in = weight[0].numel()
+    std = (1.0 / fan_in) ** 0.5 / 0.87962566103423978  # std of N(0, 1) cut at ±2
+    with torch.no_grad():
+        return nn.init.trunc_normal_(weight, 0.0, std, -2.0 * std, 2.0 * std,
+                                     generator=generator)
 
 
 def ResNet18(dtype: torch.dtype = torch.float32) -> ResNet:

@@ -227,7 +227,8 @@ def register(sub) -> None:
     ex.add_argument("--batch", type=int, default=8,
                     help="fixed serving batch the scorer pads to")
     ex.add_argument("--imsize", type=int, default=None,
-                    help="default: DataConfig().imsize (256)")
+                    help="default: the checkpoint's TrainConfig imsize, else "
+                         "DataConfig().imsize (256)")
     ex.add_argument("--knn-k", type=int, default=None,
                     help="default: EvalConfig().knn_k")
     ex.add_argument("--seed", type=int, default=0,

@@ -106,6 +106,11 @@ def export_checkpoint(
 ) -> str:
     """Reference-layout ``best_model.ckpt`` → serving artifact.
 
+    ``imsize`` and ``subject``: an explicit argument wins; else the
+    checkpoint's TrainConfig (the port's own checkpoints carry one); else
+    ``DataConfig()``'s imsize and no subject
+    (ssad_tpu/serving/export.py:410-412, :479-480).
+
     The detector is fitted here, once, on ``device``: a 70/30 split from a
     generator seeded with ``seed``, the threshold from the validation
     part.  Its normality (unless an explicit ``normality`` array is given):
@@ -121,13 +126,15 @@ def export_checkpoint(
     """
     from ssad_tpu_torch.models.detector import AnomalyDetector
     from ssad_tpu_torch.train.memory_bank import newest_first
-    from ssad_tpu_torch.utils.ref_checkpoint import load_reference_checkpoint
+    from ssad_tpu_torch.utils.ref_checkpoint import load_checkpoint
 
     if mode not in ("image", "patch"):
         raise ValueError(f"unknown mode {mode!r}; valid: image, patch")
     dev = resolve_device(device)
-    state_dict, bank, cfg = load_reference_checkpoint(checkpoint_path, allow_pickle)
-    imsize = tuple(imsize or DataConfig().imsize)
+    state_dict, bank, cfg, train_cfg = load_checkpoint(checkpoint_path, allow_pickle)
+    data_cfg = train_cfg.data if train_cfg is not None else DataConfig()
+    imsize = tuple(imsize or data_cfg.imsize)
+    subject = subject or (train_cfg.data.subject if train_cfg is not None else None)
     engine = data = None
     if mode == "patch":
         model = build_model(cfg)

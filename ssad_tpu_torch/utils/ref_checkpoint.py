@@ -12,6 +12,9 @@ A checkpoint is a torch pickle with:
   memory_bank       (R, 512) tensor, rows oldest → newest (models.py:199)
   hyper_parameters  PeraNet.__init__ kwargs (models.py:33); the port adds
                     ``compute_dtype`` when it writes one
+  train_config      (the port's own checkpoints, train/checkpoint.py) the
+                    TrainConfig JSON; when present its ModelConfig is the
+                    checkpoint's
 """
 
 from __future__ import annotations
@@ -22,7 +25,7 @@ from typing import Any, Dict, Optional, Tuple
 import numpy as np
 import torch
 
-from ssad_tpu_torch.config import ModelConfig
+from ssad_tpu_torch.config import ModelConfig, TrainConfig
 from ssad_tpu_torch.train.memory_bank import MemoryBank
 
 
@@ -67,10 +70,11 @@ def model_config_from_hparams(hparams: Optional[Dict[str, Any]]) -> ModelConfig:
     )
 
 
-def load_reference_checkpoint(
+def load_checkpoint(
     path: str | Path, allow_pickle: bool = False
-) -> Tuple[Dict[str, torch.Tensor], Optional[MemoryBank], ModelConfig]:
-    """A ``best_model.ckpt`` → (state_dict, bank or None, ModelConfig).
+) -> Tuple[Dict[str, torch.Tensor], Optional[MemoryBank], ModelConfig, Optional[TrainConfig]]:
+    """A ``best_model.ckpt`` → (state_dict, bank or None, ModelConfig,
+    TrainConfig or None: only the port's own checkpoints carry one).
 
     Tries the safe loader first; ``allow_pickle=True`` permits full
     unpickling of a file you trust (Lightning checkpoints sometimes carry
@@ -90,14 +94,19 @@ def load_reference_checkpoint(
         ckpt = torch.load(path, map_location="cpu", weights_only=False)
     if "state_dict" not in ckpt:
         raise ValueError(f"{path} has no 'state_dict' — not a Lightning checkpoint")
-    cfg = model_config_from_hparams(ckpt.get("hyper_parameters"))
+    train_cfg = None
+    if ckpt.get("train_config"):
+        train_cfg = TrainConfig.from_json(ckpt["train_config"])
+        cfg = train_cfg.model
+    else:
+        cfg = model_config_from_hparams(ckpt.get("hyper_parameters"))
     bank = None
     mb = ckpt.get("memory_bank")
     if mb is not None:
         mb = torch.as_tensor(mb)
         if mb.ndim == 2 and mb.shape[0] > 0:
             bank = bank_from_rows(mb.numpy(), capacity=cfg.memory_bank_size)
-    return dict(ckpt["state_dict"]), bank, cfg
+    return dict(ckpt["state_dict"]), bank, cfg, train_cfg
 
 
 def save_reference_checkpoint(
@@ -105,9 +114,13 @@ def save_reference_checkpoint(
     state_dict: Dict[str, torch.Tensor],
     bank_rows=None,
     cfg: Optional[ModelConfig] = None,
+    train_config: Optional[TrainConfig] = None,
 ) -> str:
     """Write a checkpoint in the reference layout.  ``bank_rows`` are
-    oldest → newest, as the reference stores them."""
+    oldest → newest, as the reference stores them.  With ``train_config``
+    its JSON is stored too, and its ModelConfig is the one written."""
+    if train_config is not None:
+        cfg = train_config.model
     cfg = cfg or ModelConfig()
     hparams = {
         "layer_outputs": list(cfg.layer_outputs),
@@ -122,12 +135,12 @@ def save_reference_checkpoint(
     )
     path = Path(path)
     path.parent.mkdir(parents=True, exist_ok=True)
-    torch.save(
-        {
-            "state_dict": {k: v.detach().cpu() for k, v in state_dict.items()},
-            "memory_bank": bank,
-            "hyper_parameters": hparams,
-        },
-        path,
-    )
+    ckpt = {
+        "state_dict": {k: v.detach().cpu() for k, v in state_dict.items()},
+        "memory_bank": bank,
+        "hyper_parameters": hparams,
+    }
+    if train_config is not None:
+        ckpt["train_config"] = train_config.to_json()
+    torch.save(ckpt, path)
     return str(path)

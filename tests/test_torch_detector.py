@@ -82,23 +82,23 @@ def test_reference_checkpoint_load_and_pickle_policy(tmp_path):
 
     from test_ref_checkpoint import lightning_checkpoint
 
-    from ssad_tpu_torch.utils.ref_checkpoint import load_reference_checkpoint
+    from ssad_tpu_torch.utils.ref_checkpoint import load_checkpoint
 
     ckpt = lightning_checkpoint(bank_rows=7)
     torch.save(ckpt, tmp_path / "best_model.ckpt")
-    sd, bank, cfg = load_reference_checkpoint(tmp_path / "best_model.ckpt")
-    assert cfg.num_classes == 4 and cfg.memory_bank_size == 1000
+    sd, bank, cfg, train_cfg = load_checkpoint(tmp_path / "best_model.ckpt")
+    assert cfg.num_classes == 4 and cfg.memory_bank_size == 1000 and train_cfg is None
     assert cfg.compute_dtype == "bfloat16" and set(sd) == set(ckpt["state_dict"])
     # reference rows are oldest → newest; newest_first reverses them
     np.testing.assert_array_equal(newest_first(bank).numpy(), ckpt["memory_bank"].numpy()[::-1])
 
     with pytest.raises(FileNotFoundError):
-        load_reference_checkpoint(tmp_path / "missing.ckpt")
+        load_checkpoint(tmp_path / "missing.ckpt")
     ckpt["hyper_parameters"] = argparse.Namespace(num_classes=4)  # not a safe type
     torch.save(ckpt, tmp_path / "pickled.ckpt")
     with pytest.raises(ValueError, match="allow_pickle"):
-        load_reference_checkpoint(tmp_path / "pickled.ckpt")
+        load_checkpoint(tmp_path / "pickled.ckpt")
     ckpt["hyper_parameters"] = {"num_classes": 4}
     ckpt["memory_bank"] = torch.tensor([])
     torch.save(ckpt, tmp_path / "nobank.ckpt")
-    assert load_reference_checkpoint(tmp_path / "nobank.ckpt")[1] is None
+    assert load_checkpoint(tmp_path / "nobank.ckpt")[1] is None

@@ -30,11 +30,11 @@ def test_slice_modules_import_without_jax():
         [sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True, timeout=120
     )
     assert proc.returncode == 0, proc.stdout + proc.stderr
-    assert len(MODULES) >= 34, len(MODULES)  # a dropped module fails here
+    assert len(MODULES) >= 39, len(MODULES)  # a dropped module fails here
 
 
 _FORBIDDEN = re.compile(
-    r"^\s*(import\s+(jax|flax|orbax)\b|from\s+(jax|flax|orbax)\b"
+    r"^\s*(import\s+(jax|flax|optax|orbax)\b|from\s+(jax|flax|optax|orbax)\b"
     r"|import\s+ssad_tpu(\s|$|\.|,)|from\s+ssad_tpu(\s|\.)(?!_torch))",
     re.MULTILINE,
 )
@@ -54,7 +54,7 @@ def test_no_jax_or_jax_package_imports_in_source(path):
 def test_forbidden_pattern_catches_the_jax_package():
     for line in ("import jax", "from jax import numpy", "import ssad_tpu",
                  "from ssad_tpu.ops import knn", "from ssad_tpu import config",
-                 "    import flax.linen as nn"):
+                 "    import flax.linen as nn", "import optax"):
         assert _FORBIDDEN.search(line), line
     for line in ("from ssad_tpu_torch.ops import knn", "import ssad_tpu_torch"):
         assert not _FORBIDDEN.search(line), line
@@ -73,7 +73,7 @@ def test_resolve_device_defaults_to_cuda_or_raises():
             resolve_device("cuda")
 
 
-@pytest.mark.parametrize("command", ["score", "qa"])
+@pytest.mark.parametrize("command", ["score", "qa", "train"])
 def test_cli_without_device_flag_refuses_the_cpu(tmp_path, command):
     if torch.cuda.is_available():
         pytest.skip("a card is present: the default device is usable")
@@ -81,6 +81,7 @@ def test_cli_without_device_flag_refuses_the_cpu(tmp_path, command):
     args = {
         "score": ["--artifact", str(tmp_path / "missing.ssadpt"), str(tmp_path / "x.npy")],
         "qa": ["--dataset-dir", str(tmp_path), "--subject", "bottle"],
+        "train": ["--dataset-dir", str(tmp_path), "--subject", "bottle"],
     }[command]
     proc = subprocess.run(
         [sys.executable, "-m", "ssad_tpu_torch.cli", command, *args],

@@ -98,3 +98,25 @@ def test_image_ops_match_jax():
             resize_nearest(torch.from_numpy(img), size).numpy(),
             np.asarray(jim.resize_nearest(jnp.asarray(img), size)),
         )
+
+
+def test_stem_s2d_runs_the_plain_stem_equal_to_jax_s2d():
+    """ModelConfig.stem_s2d is carried and ignored: the port runs the
+    7×7/s2 conv, which equals the JAX package's space-to-depth stem (f32,
+    1e-5; the two stems agree to summation order)."""
+    from ssad_tpu.config import ModelConfig as JaxModelConfig
+    from ssad_tpu.models.peranet import build_model as jax_build_model
+
+    sd = reference_state_dict()
+    _, params, stats = jax_variables(sd, "float32")
+    jmodel = jax_build_model(JaxModelConfig(compute_dtype="float32", stem_s2d=True))
+    x = seeded((2, 64, 64, 3), 6)
+    ref = jmodel.apply({"params": params, "batch_stats": stats}, jnp.asarray(x), train=False)
+    outs = []
+    for s2d in (True, False):
+        model = build_model(ModelConfig(compute_dtype="float32", stem_s2d=s2d))
+        model.load_state_dict(sd, strict=True)
+        with torch.inference_mode():
+            outs.append(model.eval()(torch.from_numpy(x))["latent_space"].numpy())
+    np.testing.assert_allclose(outs[0], np.asarray(ref["latent_space"]), rtol=1e-5, atol=1e-5)
+    np.testing.assert_array_equal(outs[0], outs[1])
