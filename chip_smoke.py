@@ -69,10 +69,10 @@ failure; the script exits 0 only when all pass):
 5. Drive the CutPaste pretext synthesizer (the trainer's batch maker) at
    DataConfig's batch of 96: a seeded 256² MVTec-layout tree of 12
    train-good PNGs per category (bottle, hazelnut, screw, carpet);
-   ``prepare_pretext_data`` (masks by OpenCV or by the numpy path: the
-   line says which), then five cases: bottle, hazelnut (per-image masks)
-   and carpet (cut pool) at image level on 256² canvases, bottle and screw
-   (pre-crop, per-image masks) in patch mode on 64² crops.  Per case:
+   ``prepare_pretext_data`` (object masks on the host), then five cases:
+   bottle, hazelnut (per-image masks) and carpet (cut pool) at image
+   level on 256² canvases, bottle and screw (pre-crop, per-image masks)
+   in patch mode on 64² crops.  Per case:
    inputs uploaded once; draws on the host, synthesis on the card; the
    same draws through the port on the CPU (labels and images equal, bit
    for bit); one batch under
@@ -105,8 +105,33 @@ failure; the script exits 0 only when all pass):
    images/s, the device busy share of one step under the profiler and
    its device µs by group (synthesis, forward, backward, optimizer,
    bank fill + insert).  No TPU kernel lies on the train step.
-7. Print one JSON line of kernel records (all three kernels), the card
-   line again, and the final {"ok": true, "device": ...} line.
+7. Drive evaluation at full width on phase 6's trained checkpoint (256²,
+   bf16): a seeded test split beside phase 5's bottle images with MVTec
+   bottle's counts (20 good; broken_large 20, broken_small 22,
+   contamination 21, each with its ground-truth mask: 83 images, 5.4 M
+   pixels).  Launch counts are reset just before and read just after
+   ``cli evaluate`` (image level: csrc/knn.cu fits and scores on the
+   checkpoint's bank), ``cli evaluate --patch-level`` (3 normality images
+   → 2,523 windows, a 1,766-row bank: csrc/stem_pool.cu on every embedded
+   batch, csrc/knn_tiled.cu for the fit and the scores), ``cli infer``
+   and ``cli infer --patch-level``, all in process on the card; each
+   kernel must run in its mode.  Then: every file the JAX evaluator writes
+   but the t-SNE figure exists, and ``inference.npz`` has the JAX keys and
+   shapes.  Then the same steps through the library functions the CLI
+   calls, synchronised, give the stages' times (embed, fit, score,
+   Grad-CAM, pixel metrics: the on-card program by CUDA events against
+   the host oracles on the same maps) and hold every kernel call of the
+   path against the plain k-NN on the same inputs (1e-5): both fits'
+   calibration scores (50 × 118 rows on csrc/knn.cu, 757 × 1,766 on
+   csrc/knn_tiled.cu), the image scores, each 8-image batch of evaluate's
+   ``score_patch_maps`` (6,728 and 2,523 windows; raw and upsampled maps)
+   and infer's 69,803 windows; and the Grad-CAM maps (finite, in [0, 1], zero wherever y_hat is 0; a
+   defect prediction whose saliency the ReLU cuts everywhere is zero too,
+   and is counted) and the on-card metrics against the oracles (2e-4;
+   AUPRO 3e-4).
+8. Print one JSON line of kernel records (all three kernels, with their
+   launches on the training and evaluation paths), the card line again,
+   and the final {"ok": true, "device": ...} line.
 """
 
 from __future__ import annotations
@@ -147,6 +172,8 @@ SYNTH_CASES = (("bottle", False), ("hazelnut", False), ("carpet", False), ("bott
 #: training at DataConfig's batch of 96: 9 train PNGs duplicated to 774 →
 #: 8 steps an epoch
 TRAIN_BATCH, TRAIN_MIN_LEN, TRAIN_MIN_BANK, TRAIN_TIMED, TRAIN_PARITY_BATCH = 96, 768, 16, 10, 16
+#: evaluation: MVTec bottle's test split (good, then its three defect types)
+EVAL_SPLIT = (("good", 20), ("broken_large", 20), ("broken_small", 22), ("contamination", 21))
 
 
 def fail(msg: str) -> None:
@@ -828,10 +855,11 @@ def drive_patch_path(device, work: Path, seed: int = 1):
     return launches, serving
 
 
-def write_synth_tree(root: Path, seed: int = 3) -> None:
-    """A seeded MVTec-layout tree of 256² train-good PNGs: a bright disc on
-    a noisy gradient for the objects (moving from image to image for the
-    non-fixed hazelnut and screw), seeded noise for the carpet texture."""
+def write_synth_tree(root: Path, seed: int = 3, images: int = SYNTH_IMAGES) -> None:
+    """A seeded MVTec-layout tree of ``images`` 256² train-good PNGs per
+    category: a bright disc on a noisy gradient for the objects (moving
+    from image to image for the non-fixed hazelnut and screw), seeded noise
+    for the carpet texture."""
     from PIL import Image
 
     rng = np.random.default_rng(seed)
@@ -839,7 +867,7 @@ def write_synth_tree(root: Path, seed: int = 3) -> None:
     for cat in ("bottle", "hazelnut", "screw", "carpet"):
         good = root / cat / "train" / "good"
         good.mkdir(parents=True)
-        for i in range(SYNTH_IMAGES):
+        for i in range(images):
             if cat == "carpet":
                 img = rng.integers(70, 130, (IMSIZE, IMSIZE, 3)).astype(np.uint8)
             else:
@@ -882,7 +910,7 @@ def drive_synthesis(device, work: Path) -> dict:
 
     from ssad_tpu_torch import cli
     from ssad_tpu_torch.config import DataConfig
-    from ssad_tpu_torch.data import masks, mvtec
+    from ssad_tpu_torch.data import mvtec
     from ssad_tpu_torch.data import synthetic as syn
     from ssad_tpu_torch.ops import image as im
 
@@ -891,8 +919,8 @@ def drive_synthesis(device, work: Path) -> dict:
     root = work / "synth_mvtec"
     t0 = time.perf_counter()
     write_synth_tree(root)
-    print(f"synth data: {4 * SYNTH_IMAGES} PNGs in {time.perf_counter() - t0:.2f} s, "
-          f"mask path {masks.mask_backend()}", flush=True)
+    print(f"synth data: {4 * SYNTH_IMAGES} PNGs in {time.perf_counter() - t0:.2f} s",
+          flush=True)
     records = {}
     for subject, patch in SYNTH_CASES:
         case = f"{subject}_{'patch' if patch else 'image'}"
@@ -968,7 +996,7 @@ def drive_synthesis(device, work: Path) -> dict:
             by_name[name] = by_name.get(name, 0.0) + t_end - t_start
         rec = {
             "subject": subject, "patch_mode": patch, "canvas": side, "batch": batch,
-            "mask_path": masks.mask_backend(), "prepare_s": prepare_s,
+            "prepare_s": prepare_s,
             "per_image_masks": spec.is_non_fixed,
             "label_counts": np.bincount(y.cpu().numpy(), minlength=4).tolist(),
             "cpu_max_abs": float(diff.max()),
@@ -1199,6 +1227,367 @@ def drive_training(device, work: Path) -> dict:
         print(f"train {stage}: {json.dumps(rec)}", flush=True)
     return record
 
+def write_eval_split(category_dir: Path, seed: int = 5, split=EVAL_SPLIT) -> int:
+    """A seeded MVTec-layout test split beside a category's train-good
+    images, ``split`` giving (type, count) pairs, by default MVTec bottle's
+    counts: test/good (20) and three defect types (broken_large 20,
+    broken_small 22, contamination 21) on bottle-like 256² images, each
+    defect's region in ground_truth/<type>/*_mask.png.  Returns the number
+    of test images."""
+    from PIL import Image
+
+    rng = np.random.default_rng(seed)
+    yy, xx = np.mgrid[0:IMSIZE, 0:IMSIZE]
+    c, u = IMSIZE / 2, IMSIZE / 256  # the centre; lengths are given at 256²
+    n = 0
+    for kind, count in split:
+        test_dir = category_dir / "test" / kind
+        test_dir.mkdir(parents=True)
+        for i in range(count):
+            img = (synthetic_images(rng, 1)[0] * 160).astype(np.uint8)
+            disc = (yy - c) ** 2 + (xx - c) ** 2 < (70 * u) ** 2
+            img[disc] = np.clip(img[disc].astype(int) + 80, 0, 255).astype(np.uint8)
+            mask = np.zeros((IMSIZE, IMSIZE), bool)
+            if kind != "good":
+                blobs = {"broken_large": (1, 22, 40), "broken_small": (1, 6, 12),
+                         "contamination": (4, 3, 8)}[kind]
+                for _ in range(rng.integers(1, blobs[0] + 1)):
+                    t = rng.uniform(0, 2 * np.pi)
+                    cy, cx = c + 60 * u * np.sin(t), c + 60 * u * np.cos(t)
+                    ry, rx = rng.uniform(blobs[1] * u, blobs[2] * u, 2)
+                    mask |= ((yy - cy) / ry) ** 2 + ((xx - cx) / rx) ** 2 < 1
+                color = (20, 20, 20) if kind.startswith("broken") else (120, 70, 20)
+                img[mask] = color
+                gt_dir = category_dir / "ground_truth" / kind
+                gt_dir.mkdir(parents=True, exist_ok=True)
+                Image.fromarray((mask * 255).astype(np.uint8)).save(gt_dir / f"{i:03d}_mask.png")
+            Image.fromarray(img).save(test_dir / f"{i:03d}.png")
+            n += 1
+    return n
+
+
+def _eval_launches():
+    from ssad_tpu_torch.ops import knn, stem_pool
+
+    return {"knn_cosine_scores": knn.knn_cosine_scores_cuda.launches,
+            "knn_cosine_scores_tiled": knn.knn_cosine_scores_tiled_cuda.launches,
+            "stem_pool": stem_pool.stem_pool_cuda.launches}
+
+
+def _run_cli(argv) -> tuple:
+    """``cli.main(argv)`` in process → (its stdout lines, wall s)."""
+    import contextlib
+
+    import torch
+
+    from ssad_tpu_torch import cli
+
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    if rc != 0:
+        fail(f"cli {' '.join(argv[:1])} returned {rc}")
+    return buf.getvalue().strip().splitlines(), wall
+
+
+def _timed(fn):
+    """(fn's result, wall ms with the card synchronised at both ends)."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def _metrics_against_oracles(maps, gts, what: str) -> dict:
+    """The evaluator's pixel metrics (``evaluator._pixel_scores``) on the
+    card against the host oracles on the same maps: the whole on-card call
+    and the host oracles' (host clock, synchronised), the on-card call's
+    host part (the masks' connected components and the upload), the sort
+    program alone (CUDA events) and its device time by kernel (one
+    profiled call); fails beyond 2e-4 (AUROC, IoU) or 3e-4 (AUPRO)."""
+    import torch
+
+    from ssad_tpu_torch.config import EvalConfig
+    from ssad_tpu_torch.evaluation import metrics_device as MD
+    from ssad_tpu_torch.evaluation.evaluator import _pixel_scores
+
+    on_card, host = EvalConfig(device_metrics=True), EvalConfig(device_metrics=False)
+    _pixel_scores(on_card, maps, gts)  # warm
+    dev, call_ms = _timed(lambda: _pixel_scores(on_card, maps, gts))
+    inputs, inputs_ms = _timed(lambda: MD.metric_inputs(maps, gts))
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    MD.metrics_program(*inputs)
+    end.record()
+    torch.cuda.synchronize()
+    program_ms = start.elapsed_time(end)
+    # the program's device time by kernel: one profiled call
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        MD.metrics_program(*inputs)
+        torch.cuda.synchronize()
+    events = device_events(prof)
+    by_kernel = {}
+    for name, t0, t1 in events:
+        by_kernel[name[:60]] = by_kernel.get(name[:60], 0.0) + (t1 - t0)
+    top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:5]
+    oracle, host_ms = _timed(lambda: _pixel_scores(host, maps, gts))
+    # (AUROC, ROC, IoU, AUPRO, PRO curve)
+    device = {"auroc": dev[0], "iou": dev[2], "aupro": dev[3]}
+    oracle = {"auroc": oracle[0], "iou": oracle[2], "aupro": oracle[3]}
+    deltas = {k: abs(device[k] - v) for k, v in oracle.items()}
+    bounds = {"auroc": 2e-4, "iou": 2e-4, "aupro": 3e-4}
+    if any(not deltas[k] <= b for k, b in bounds.items()):
+        fail(f"{what}: on-card pixel metrics vs host oracles {deltas} beyond {bounds}")
+    return {"pixels": int(gts.size), "call_ms": call_ms, "inputs_ms": inputs_ms,
+            "program_ms": program_ms, "program_busy_us": busy_us(events),
+            "program_device_ops": len(events), "program_top_us": dict(top),
+            "host_oracles_ms": host_ms, "device": device, "oracle": oracle,
+            "max_abs_delta": max(deltas.values())}
+
+
+def _plain_knn(queries, bank, k: int):
+    """The plain version of the k-NN function the dispatch picks for
+    ``bank`` (an (M, D) tensor or a TiledBank)."""
+    from ssad_tpu_torch.ops import knn
+
+    if bank.shape[0] > knn.PALLAS_MAX_BANK_ROWS:
+        return knn.knn_cosine_scores_tiled_plain(queries, bank, k=k)
+    return knn.knn_cosine_scores_plain(queries, bank, k=k)
+
+
+def _calibration_vs_plain(det, normality, seed: int, k: int) -> tuple:
+    """A fitted detector's calibration scores (its validation rows against
+    its bank, scored by a kernel in ``fit``) against the plain k-NN on the
+    same rows, the split redrawn as ``fit`` drew it → (max |d|, [queries,
+    bank rows])."""
+    import torch
+
+    m = normality.shape[0]
+    perm = torch.randperm(m, generator=torch.Generator().manual_seed(seed)).to(normality.device)
+    n_val = m - det.bank.shape[0]
+    if not torch.equal(normality[perm[n_val:]], det.bank):
+        fail("the redrawn split is not the one the fit drew")
+    plain = _plain_knn(normality[perm[:n_val]], det.bank, k)
+    return float((det.calibration_scores - plain).abs().max()), [n_val, int(det.bank.shape[0])]
+
+
+def eval_stages(device, root: Path, ckpt: Path) -> dict:
+    """The evaluation path's stages through the library functions the CLI
+    calls, on the trained checkpoint at the CLI's defaults, each
+    synchronised.  Image level (evaluate and infer): ``predict_mvtec``,
+    ``attach_anomaly_scores`` (fit and score), Grad-CAM per 8 images and
+    the pixel metrics of its maps.  Patch level, evaluate: the fit on 3
+    normality images, then per 8-image batch the embedding, the k-NN
+    kernel on it and ``engine.score_patch_maps`` (what evaluate calls);
+    infer: ``predict_mvtec`` and ``attach_anomaly_scores`` on all windows.
+    Every kernel call of these stages is held against the plain k-NN on
+    the same inputs to 1e-5: the scores, both fits' calibration scores, and
+    each batch's raw and upsampled maps.  Also checks the Grad-CAM maps
+    (finite, in [0, 1], zero wherever y_hat is 0) and the on-card metrics
+    against the host oracles."""
+    import torch
+
+    from ssad_tpu_torch.config import DataConfig, EvalConfig
+    from ssad_tpu_torch.data import mvtec
+    from ssad_tpu_torch.evaluation import inference as inf
+    from ssad_tpu_torch.models.detector import AnomalyDetector
+    from ssad_tpu_torch.models.gradcam import make_gradcam_fn
+    from ssad_tpu_torch.ops import image as im
+    from ssad_tpu_torch.ops import knn
+    from ssad_tpu_torch.ops.patches import grid_side
+
+    # the CLI's defaults: --batch-size is DataConfig's
+    cfg = EvalConfig(imsize=(IMSIZE, IMSIZE), batch_size=DataConfig().batch_size)
+    k, seed = cfg.knn_k, cfg.seed
+    engine, bank, _ = inf.load_engine(ckpt, device)
+    data = mvtec.prepare_pretext_data(root, "bottle", imsize=cfg.imsize, seed=seed)
+    test = mvtec.prepare_mvtec_test_data(root, "bottle", imsize=cfg.imsize)
+    n = test.images.shape[0]
+    out, err, shapes = {"images": n}, {}, {}
+
+    # ---- image level: evaluate and infer ----
+    outputs, out["image_embed_ms"] = _timed(
+        lambda: inf.predict_mvtec(engine, test, batch_size=cfg.batch_size))
+    normality = inf.normality_embeddings(engine, bank, data.train_images,
+                                         batch_size=cfg.batch_size)
+    (outputs, det), out["image_fit_and_score_ms"] = _timed(
+        lambda: inf.attach_anomaly_scores(outputs, normality, k=k, seed=seed))
+    _, out["image_score_ms"] = _timed(lambda: det.predict(outputs.embeddings))
+    plain = _plain_knn(outputs.embeddings, det.bank, k)
+    err["image_scores"] = float((outputs.anomaly_maps - plain).abs().max())
+    shapes["image_scores"] = [n, int(det.bank.shape[0])]
+    err["image_calibration"], shapes["image_calibration"] = _calibration_vs_plain(
+        det, normality, seed, k)
+    gradcam = make_gradcam_fn(engine.model)
+    bs = max(1, min(8, cfg.batch_size))  # evaluate's Grad-CAM and patch batch
+    cams, out["gradcam_ms"] = _timed(lambda: torch.cat([
+        gradcam(outputs.tensor_data[lo:lo + bs], outputs.y_hat[lo:lo + bs])
+        for lo in range(0, n, bs)]))
+    good = outputs.y_hat == 0
+    peak = cams.reshape(n, -1).amax(1)
+    if (not torch.isfinite(cams).all() or float(cams.min()) < 0.0 or float(cams.max()) > 1.0
+            or not bool((peak[good] == 0).all())):
+        fail(f"Grad-CAM maps: finite {bool(torch.isfinite(cams).all())}, range "
+             f"[{float(cams.min())}, {float(cams.max())}], a nonzero map where y_hat == 0")
+    # a defect prediction whose saliency the ReLU cuts everywhere is all
+    # zero too: counted, not an error
+    out["gradcam_defect_maps"] = int((~good).sum())
+    out["gradcam_zero_defect_maps"] = int((peak[~good] == 0).sum())
+    out["gradcam_metrics"] = _metrics_against_oracles(cams, test.ground_truths, "Grad-CAM")
+
+    # ---- patch level: evaluate (evaluator.evaluate_category's steps) ----
+    def fit_patch():
+        rows = inf.normality_embeddings(
+            engine, None, data.train_images, batch_size=4, patch_localization=True,
+            patch_dim=cfg.patch_dim, stride=cfg.stride, min_bank_rows=10**9,
+            max_images=cfg.n_normality_images, seed=seed)
+        return rows, AnomalyDetector(k=k).fit(rows, torch.Generator().manual_seed(seed))
+
+    (rows, det), out["patch_fit_ms"] = _timed(fit_patch)
+    err["patch_calibration"], shapes["patch_calibration"] = _calibration_vs_plain(
+        det, rows, seed, k)
+    tiled = knn.prepare_bank(det.bank)
+    if not isinstance(tiled, knn.TiledBank):
+        fail(f"the patch bank holds {det.bank.shape[0]} rows: not above "
+             f"{knn.PALLAS_MAX_BANK_ROWS}, so the tiled kernel would not run")
+    ms = {"patch_embed_ms": 0.0, "patch_score_ms": 0.0, "patch_score_maps_ms": 0.0}
+    err["patch_batch_scores"] = err["patch_batch_maps"] = 0.0
+    shapes["patch_batch_scores"], maps = [], []
+    for lo in range(0, n, bs):
+        raw = torch.from_numpy(np.ascontiguousarray(test.images[lo:lo + bs]))
+        x = im.normalize_imagenet(raw.to(device))
+        (_, emb, per), t = _timed(lambda: engine.predict_patches(x, cfg.patch_dim, cfg.stride))
+        ms["patch_embed_ms"] += t
+        scores, t = _timed(lambda: knn.knn_cosine_scores(emb, tiled, k=k))
+        ms["patch_score_ms"] += t
+        batch_maps, t = _timed(lambda: engine.score_patch_maps(
+            x, tiled, dim=cfg.patch_dim, stride=cfg.stride, k=k, upsample_to=cfg.upsample_size))
+        ms["patch_score_maps_ms"] += t
+        plain = knn.knn_cosine_scores_tiled_plain(emb, tiled, k=k)
+        side = int(round(per ** 0.5))
+        plain_maps = inf.upsample(plain.reshape(x.shape[0], side, side), cfg.upsample_size)
+        err["patch_batch_scores"] = max(err["patch_batch_scores"],
+                                        float((scores - plain).abs().max()))
+        err["patch_batch_maps"] = max(err["patch_batch_maps"],
+                                      float((batch_maps - plain_maps).abs().max()))
+        if [emb.shape[0], tiled.shape[0]] not in shapes["patch_batch_scores"]:
+            shapes["patch_batch_scores"].append([emb.shape[0], tiled.shape[0]])
+        maps.append(batch_maps)
+    out.update(ms)
+    out["patch_metrics"] = _metrics_against_oracles(torch.cat(maps), test.ground_truths,
+                                                    "patch maps")
+
+    # ---- patch level: infer (cli infer's calls) ----
+    outputs, out["infer_patch_embed_ms"] = _timed(lambda: inf.predict_mvtec(
+        engine, test, batch_size=bs, patch_localization=True, patch_dim=cfg.patch_dim,
+        stride=cfg.stride))
+    rows = inf.normality_embeddings(engine, None, data.train_images, patch_localization=True,
+                                    patch_dim=cfg.patch_dim, stride=cfg.stride, max_images=3,
+                                    seed=seed)
+    per = grid_side(IMSIZE, cfg.patch_dim, cfg.stride) ** 2
+    (outputs, det), out["infer_patch_fit_and_score_ms"] = _timed(lambda: inf.attach_anomaly_scores(
+        outputs, rows, patch_localization=True, num_images=n, patches_per_image=per, k=k,
+        seed=seed))
+    plain = _plain_knn(outputs.embeddings, det.bank, k)
+    err["infer_patch_scores"] = float((outputs.anomaly_maps.reshape(-1) - plain).abs().max())
+    shapes["infer_patch_scores"] = [int(outputs.embeddings.shape[0]), int(det.bank.shape[0])]
+    err["infer_patch_calibration"], shapes["infer_patch_calibration"] = _calibration_vs_plain(
+        det, rows, seed, k)
+    out["vs_plain_knn"], out["vs_plain_knn_shapes"] = err, shapes
+    bad = {key: v for key, v in err.items() if not v <= KNN_TOL}
+    if bad:
+        fail(f"kernel calls of the evaluation path vs the plain k-NN: {bad} > {KNN_TOL} "
+             f"(shapes {shapes})")
+    return out
+
+
+#: files the JAX evaluator writes per mode (but <subject>_tsne.png, slice 6b)
+EVAL_FILES = {
+    "image": ["bottle/bottle_artificial_report.txt", "bottle/bottle_image_roc.png",
+              "bottle/bottle_pixel_roc.png", "bottle/bottle_pro.png",
+              "tables/objects_rocs.png"]
+    + [f"tables/{d}/{t}.{e}" for d, e in (("csv", "csv"), ("latex", "tex"), ("markdown", "md"))
+       for t in ("image_all_scores", "image_objects_scores", "artificial_all_scores")],
+    "patch": ["bottle/bottle_pixel_roc.png", "bottle/bottle_pro.png",
+              "tables/objects_pixel_rocs.png", "tables/objects_pros.png"]
+    + [f"tables/{d}/{t}.{e}" for d, e in (("csv", "csv"), ("latex", "tex"), ("markdown", "md"))
+       for t in ("patch_all_scores", "patch_objects_scores")],
+}
+
+
+def drive_evaluation(device, work: Path) -> dict:
+    """Phase 7: cli evaluate (image, patch) and cli infer (image, patch) on
+    phase 6's trained checkpoint and a seeded 83-image test split."""
+    from ssad_tpu_torch.ops import knn, stem_pool
+
+    root, models = work / "synth_mvtec", work / "train_out"
+    n_test = write_eval_split(root / "bottle")
+    common = ["--dataset-dir", str(root), "--models-dir", str(models),
+              "--imsize", str(IMSIZE), "--seed", "0"]
+    record = {"test_images": n_test}
+
+    # ---- the evaluation path: counts to 0 just before, read just after -----
+    knn.knn_cosine_scores_cuda.launches = 0
+    knn.knn_cosine_scores_tiled_cuda.launches = 0
+    stem_pool.stem_pool_cuda.launches = 0
+    runs = {}
+    for name, argv in (
+        ("evaluate_image", ["evaluate", "--subjects", "bottle",
+                            "--outputs-dir", str(work / "eval_image")]),
+        ("evaluate_patch", ["evaluate", "--subjects", "bottle", "--patch-level",
+                            "--outputs-dir", str(work / "eval_patch")]),
+        ("infer_image", ["infer", "--subject", "bottle", "--outputs-dir", str(work / "infer_image")]),
+        ("infer_patch", ["infer", "--subject", "bottle", "--patch-level",
+                         "--outputs-dir", str(work / "infer_patch")]),
+    ):
+        before = _eval_launches()
+        lines, wall = _run_cli(argv + common)
+        after = _eval_launches()
+        runs[name] = {"wall_s": wall, "images_per_s": n_test / wall, "stdout": lines,
+                      "launches": {k: after[k] - before[k] for k in after}}
+    launches = _eval_launches()
+    # ---- end of the evaluation path ----------------------------------------
+    card = card_line()
+    for name, run in runs.items():
+        print(f"eval {name}: {json.dumps(run)} ({card})", flush=True)
+    need = {"evaluate_image": ["knn_cosine_scores"], "infer_image": ["knn_cosine_scores"],
+            "evaluate_patch": ["stem_pool", "knn_cosine_scores_tiled"],
+            "infer_patch": ["stem_pool", "knn_cosine_scores_tiled"]}
+    for name, kernels in need.items():
+        for k in kernels:
+            if runs[name]["launches"][k] < 1:
+                fail(f"{k} was not launched by {name}")
+    if not runs["evaluate_image"]["stdout"][-1].startswith("bottle: image_auroc=") or \
+            not runs["evaluate_patch"]["stdout"][-1].startswith("bottle: pixel_auroc="):
+        fail(f"evaluate printed {runs['evaluate_image']['stdout']} / "
+             f"{runs['evaluate_patch']['stdout']}")
+    for mode in ("image", "patch"):
+        missing = [f for f in EVAL_FILES[mode] if not (work / f"eval_{mode}" / f).is_file()]
+        if missing:
+            fail(f"evaluate ({mode}) did not write {missing}")
+        info = json.loads(runs[f"infer_{mode}"]["stdout"][-1])
+        with np.load(info["outputs"]) as z:
+            shapes = {k: z[k].shape for k in z.files}
+        windows = n_test * WINDOWS
+        want = {"anomaly": (n_test, IMSIZE, IMSIZE) if mode == "patch" else (n_test,),
+                "y_true": (n_test,), "y_hat": (windows,) if mode == "patch" else (n_test,),
+                "threshold": ()}
+        if shapes != want or info["n"] != want["y_hat"][0]:
+            fail(f"infer ({mode}) wrote {shapes}, printed {info}; expected {want}")
+    record.update(runs=runs, launches=launches,
+                  stages=eval_stages(device, root, models / "bottle" / "best_model.ckpt"))
+    print(f"eval stages: {json.dumps(record['stages'])} ({card_line()})", flush=True)
+    print(f"eval launches: {json.dumps(launches)}", flush=True)
+    return record
+
 
 def main() -> int:
     try:
@@ -1242,6 +1631,7 @@ def main() -> int:
         patch_launches, _ = drive_patch_path(device, work)
         drive_synthesis(device, work)
         train = drive_training(device, work)
+        evaluation = drive_evaluation(device, work)
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
@@ -1257,6 +1647,7 @@ def main() -> int:
         "device_us": serve["device_us"], "fit_device_us": records["fit"]["device_us"],
         "fit_ms": records["fit"]["ms"], "fit_library_ms": records["fit"]["library_ms"],
         "train_path_launches": train["knn_launches"],
+        "eval_path_launches": evaluation["launches"]["knn_cosine_scores"],
     }]
     tserve, tfit = tiled_records["serve"], tiled_records["fit"]
     kernels.append({
@@ -1272,6 +1663,7 @@ def main() -> int:
         "resident_ctas_per_sm": tserve["resident_ctas_per_sm"],
         "fit_ms": tfit["ms"], "fit_device_us": tfit["device_us"], "fit_plain_ms": tfit["plain_ms"],
         "fit_library_ms": tfit["library_ms"], "fit_bound_ms": tfit["bound_ms"],
+        "eval_path_launches": evaluation["launches"]["knn_cosine_scores_tiled"],
     })
     sserve = stem_records[BATCH * WINDOWS]
     kernels.append({
@@ -1285,9 +1677,11 @@ def main() -> int:
         "resident_blocks_per_sm": sserve["resident_blocks_per_sm"],
         "tolerance": "rtol 2^-7, atol 1e-6; < 1e-3 of elements not bit-equal",
         "flipped_share": max(r["flipped_share"] for r in stem_records.values()),
+        "eval_path_launches": evaluation["launches"]["stem_pool"],
     })
     for rec in kernels:
-        if rec["launches"] < 1 or rec.get("train_path_launches", 1) < 1:
+        if (rec["launches"] < 1 or rec.get("train_path_launches", 1) < 1
+                or rec["eval_path_launches"] < 1):
             fail(f"{rec['name']} was not launched on its path")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card_line(), flush=True)

@@ -10,12 +10,11 @@ chip_smoke.py's patch path, and a ``carpet`` texture category beside
 them) and one seeded reference checkpoint per subject, then runs
 ``cli export --mode patch --n-normality-images 50`` in process: once for
 the first subject to warm up (the kernels' build, the first imports),
-then ``--repeats`` timed exports per subject.  Separately, the time of
-``import cv2`` in a fresh interpreter (null where OpenCV is missing).
+then ``--repeats`` timed exports per subject.
 
 Prints one JSON line per subject (the seconds of each timed export and
-their median), one line with the warm-up and the OpenCV import, and the
-card's name and power limit.  It uses only ``chip_smoke.reference_state_dict``,
+their median) and one line with the warm-up and the card's name and
+power limit.  It uses only ``chip_smoke.reference_state_dict``,
 ``chip_smoke.synthetic_images`` and the ``export`` command, so the same
 file copied into an older checkout times that checkout's export: run it
 in a parent and a change within one call to compare them.
@@ -27,7 +26,6 @@ import argparse
 import contextlib
 import io
 import json
-import subprocess
 import sys
 import tempfile
 import time
@@ -41,13 +39,6 @@ sys.path.insert(0, str(ROOT))
 import chip_smoke  # noqa: E402  (this checkout's root on sys.path first)
 
 IMAGES, NORMALITY_IMAGES = 63, 50
-
-
-def cv2_import_s():
-    code = ("import time; t = time.perf_counter(); import cv2; "
-            "print(time.perf_counter() - t)")
-    out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True)
-    return float(out.stdout) if out.returncode == 0 else None
 
 
 def main() -> int:
@@ -96,8 +87,7 @@ def main() -> int:
             times = [export(subject) for _ in range(args.repeats)]
             print(json.dumps({"subject": subject, "export_s": times,
                               "median_s": float(np.median(times))}), flush=True)
-    print(json.dumps({"warmup_export_s": warmup_s, "cv2_import_s": cv2_import_s(),
-                      "card": card}), flush=True)
+    print(json.dumps({"warmup_export_s": warmup_s, "card": card}), flush=True)
     return 0
 
 

@@ -1,10 +1,14 @@
 """Command line: ``python -m ssad_tpu_torch.cli
-train|import-ckpt|export|serve|score|qa``.
+train|import-ckpt|evaluate|infer|export|serve|score|qa``.
 
 Counterpart of ssad_tpu/cli.py for the commands ported so far (the
 serving subcommands live in serving/cli.py, as in the JAX package).
-``train`` takes the JAX command's flags with ``--device`` in place of
-``--platform``; ``--data-shards`` (multi-device) is not ported.
+Each takes the JAX command's flags with ``--device`` in place of
+``--platform``.  ``train --data-shards`` is not ported; ``evaluate`` and
+``infer`` take ``--scorer mahalanobis``, ``--coreset`` (slice 7 of the
+port) and ``--data-shards``/``--category-shards`` above 1 (slice 9) and
+refuse them.  Checkpoints are ``<models-dir>/<subject>/best_model.ckpt``
+(``train``, ``import-ckpt``).
 """
 
 from __future__ import annotations
@@ -15,7 +19,8 @@ import json
 import sys
 from pathlib import Path
 
-from ssad_tpu_torch.config import DataConfig, ModelConfig, OptimConfig, TrainConfig
+from ssad_tpu_torch import constants
+from ssad_tpu_torch.config import DataConfig, EvalConfig, ModelConfig, OptimConfig, TrainConfig
 from ssad_tpu_torch.serving import cli as serving_cli
 from ssad_tpu_torch.utils.device import DeviceUnavailable
 
@@ -109,6 +114,95 @@ def cmd_import_ckpt(args) -> int:
     return 0
 
 
+def _subjects(args):
+    if args.subjects == "all":
+        return list(constants.ALL_CATEGORIES)
+    return [s.strip() for s in args.subjects.split(",") if s.strip()]
+
+
+def cmd_evaluate(args) -> int:
+    """Evaluate trained categories: per-category plots and the aggregate
+    score tables under --outputs-dir; one line of scores per subject."""
+    from ssad_tpu_torch.evaluation.evaluator import evaluate_categories
+
+    cfg = EvalConfig(
+        patch_localization=args.patch_level, patch_dim=args.patch_dim, stride=args.stride,
+        imsize=(args.imsize, args.imsize), batch_size=args.batch_size, seed=args.seed,
+        scorer=args.scorer, data_shards=args.data_shards,
+        category_shards=args.category_shards, n_normality_images=args.n_normality_images,
+        coreset=args.coreset, knn_k=args.knn_k,
+        device_metrics=False if args.host_metrics else None,
+    )
+    results = evaluate_categories(args.dataset_dir, args.models_dir, _subjects(args), cfg,
+                                  args.outputs_dir, device=args.device)
+    for s, r in results.items():
+        row = (f"pixel_auroc={r.pixel_auroc:.4f} iou={r.iou:.4f} aupro={r.aupro:.4f}"
+               if args.patch_level else f"image_auroc={r.image_auroc:.4f} f1={r.image_f1:.4f}")
+        print(f"{s}: {row}")
+    return 0
+
+
+def cmd_infer(args) -> int:
+    """Reference tools.inference (tools.py:310-390): forward the MVTec
+    test set (or synthetic pretext batches) with a trained checkpoint, fit
+    the detector on normality, score; writes <outputs-dir>/<subject>/
+    inference.npz (inference_artificial.npz) with anomaly, y_true, y_hat
+    and threshold, and prints one JSON line."""
+    import numpy as np
+
+    from ssad_tpu_torch.data import mvtec
+    from ssad_tpu_torch.data.synthetic import SynthSpec
+    from ssad_tpu_torch.evaluation import inference as inf
+    from ssad_tpu_torch.ops.patches import grid_side
+
+    # the scorer, coreset and sharding flags are checked by EvalConfig
+    EvalConfig(scorer=args.scorer, coreset=args.coreset, data_shards=args.data_shards)
+    patch = args.patch_level
+    if args.artificial and patch:
+        raise SystemExit("--artificial and --patch-level are mutually exclusive")
+    engine, bank, _ = inf.load_engine(
+        Path(args.models_dir) / args.subject / "best_model.ckpt", args.device)
+    imsize = (args.imsize, args.imsize)
+    data = mvtec.prepare_pretext_data(args.dataset_dir, args.subject, imsize=imsize)
+    if args.artificial:
+        outputs = inf.predict_artificial(
+            engine, data, SynthSpec(subject=args.subject, imsize=imsize),
+            num_samples=args.num_samples, batch_size=args.batch_size, seed=args.seed)
+    else:
+        test = mvtec.prepare_mvtec_test_data(args.dataset_dir, args.subject, imsize=imsize)
+        outputs = inf.predict_mvtec(
+            engine, test,
+            # 841 windows an image in patch mode: the evaluator's cap
+            batch_size=args.batch_size if not patch else max(1, min(8, args.batch_size)),
+            patch_localization=patch, patch_dim=args.patch_dim, stride=args.stride)
+    normality = inf.normality_embeddings(
+        engine, None if patch else bank, data.train_images, patch_localization=patch,
+        patch_dim=args.patch_dim, stride=args.stride, max_images=3 if patch else None,
+        seed=args.seed)
+    n_img = ppi = None
+    if patch:
+        ppi = grid_side(args.imsize, args.patch_dim, args.stride) ** 2
+        n_img = outputs.embeddings.shape[0] // ppi
+    outputs, detector = inf.attach_anomaly_scores(
+        outputs, normality, patch_localization=patch, num_images=n_img, patches_per_image=ppi,
+        k=args.knn_k, seed=args.seed)
+    maps = outputs.anomaly_maps
+    if patch:
+        maps = inf.upsample(maps[:, 0], args.imsize)
+    out = Path(args.outputs_dir) / args.subject
+    out.mkdir(parents=True, exist_ok=True)
+    path = out / ("inference_artificial.npz" if args.artificial else "inference.npz")
+    host = outputs.to_host()
+    np.savez_compressed(path, anomaly=maps.cpu().numpy(), y_true=host.y_true_binary,
+                        y_hat=host.y_hat, threshold=detector.threshold)
+    print(json.dumps({
+        "subject": args.subject, "mode": "patch" if patch else "image",
+        "n": int(host.y_hat.shape[0]), "threshold": float(detector.threshold),
+        "outputs": str(path),
+    }))
+    return 0
+
+
 def cmd_qa(args) -> int:
     """Render the augmentation visual-QA grid of one subject (reference
     test_artificial_transformations.py:226-435): one batch of synthetic
@@ -193,6 +287,50 @@ def build_parser() -> argparse.ArgumentParser:
                          "(trusted checkpoints only)")
     ic.set_defaults(fn=cmd_import_ckpt)
 
+    eval_cfg = EvalConfig()
+
+    def scoring_args(sp):
+        sp.add_argument("--dataset-dir", required=True)
+        sp.add_argument("--outputs-dir", default="outputs")
+        sp.add_argument("--models-dir", required=True,
+                        help="reads <models-dir>/<subject>/best_model.ckpt")
+        sp.add_argument("--imsize", type=int, default=data_cfg.imsize[0])
+        sp.add_argument("--seed", type=int, default=0)
+        sp.add_argument("--patch-level", action="store_true")
+        sp.add_argument("--patch-dim", type=int, default=eval_cfg.patch_dim)
+        sp.add_argument("--patch-size", type=int, default=data_cfg.patch_size)
+        sp.add_argument("--stride", type=int, default=eval_cfg.stride)
+        sp.add_argument("--batch-size", type=int, default=data_cfg.batch_size)
+        sp.add_argument("--knn-k", type=int, default=eval_cfg.knn_k,
+                        help="k-NN neighbours for anomaly scoring (reference models.py:354)")
+        sp.add_argument("--scorer", default="knn", choices=["knn", "mahalanobis"],
+                        help="mahalanobis is not ported yet (slice 7) and raises")
+        sp.add_argument("--coreset", type=int, default=None,
+                        help="not ported yet (slice 7): raises")
+        sp.add_argument("--data-shards", type=int, default=None,
+                        help="above 1 not ported yet (slice 9): raises")
+        serving_cli.add_device_flag(sp)
+
+    e = sub.add_parser("evaluate", help="evaluate trained categories")
+    scoring_args(e)
+    e.add_argument("--subjects", default="all")
+    e.add_argument("--category-shards", type=int, default=None,
+                   help="above 1 not ported yet (slice 9): raises")
+    e.add_argument("--n-normality-images", type=int, default=eval_cfg.n_normality_images,
+                   help="patch mode: training images re-embedded for normality")
+    e.add_argument("--host-metrics", action="store_true",
+                   help="the host numpy metric oracles instead of the fused pixel-metrics "
+                        "program (default: that program when the maps are on a card)")
+    e.set_defaults(fn=cmd_evaluate)
+
+    inf_p = sub.add_parser("infer", help="score a category with a trained model")
+    scoring_args(inf_p)
+    inf_p.add_argument("--subject", required=True)
+    inf_p.add_argument("--artificial", action="store_true",
+                       help="score synthetic pretext data instead of the MVTec test set")
+    inf_p.add_argument("--num-samples", type=int, default=256)
+    inf_p.set_defaults(fn=cmd_infer)
+
     serving_cli.register(sub)
 
     q = sub.add_parser("qa", help="augmentation visual-QA grid")
@@ -212,7 +350,7 @@ def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
     try:
         return args.fn(args)
-    except DeviceUnavailable as e:
+    except (DeviceUnavailable, NotImplementedError) as e:
         print(f"error: {e}", file=sys.stderr)
         return 2
 

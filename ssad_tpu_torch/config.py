@@ -1,6 +1,6 @@
-"""Dataclass configuration: the parts of ssad_tpu/config.py the ported
-slices read (AugConfig, DataConfig, ModelConfig, OptimConfig, MeshConfig,
-TrainConfig with its JSON form; EvalConfig.knn_k).
+"""Dataclass configuration: ssad_tpu/config.py's AugConfig, DataConfig,
+ModelConfig, OptimConfig, MeshConfig, TrainConfig with its JSON form, and
+EvalConfig.
 
 Defaults are the JAX package's, which reproduce the reference's values
 (file:line citations into the reference's src/).  A ``train_config.json``
@@ -179,6 +179,46 @@ def _to_tuple(v):
 
 @dataclasses.dataclass(frozen=True)
 class EvalConfig:
-    """Scoring options this slice reads."""
+    """Evaluation sweep options (reference evaluator.py:432-444), the JAX
+    package's fields and defaults.  The Mahalanobis scorer and the coreset
+    are slice 7 of the port, data and category sharding slice 9: asking
+    for them raises ``NotImplementedError``."""
 
+    metrics: Tuple[str, ...] = ("auroc", "f1-score")
+    patch_localization: bool = False
+    patch_dim: int = 32
+    stride: int = 8
+    #: anomaly-map upsample target; None tracks imsize (the GT masks load
+    #: at imsize, and pixel metrics need both on one grid)
+    upsample_size: Optional[int] = None
+    aupro_fpr_limit: float = 0.3  # evaluator.py / tools.py:118
     knn_k: int = 3  # reference models.py:354
+    #: 'knn' (models.py:345-370); 'mahalanobis' is not ported yet
+    scorer: str = "knn"
+    #: patch mode: training images re-embedded for normality
+    n_normality_images: int = 3
+    #: k-center coreset size (not ported yet; None keeps every row)
+    coreset: Optional[int] = None
+    imsize: Tuple[int, int] = (256, 256)
+    batch_size: int = 32
+    seed: int = 0
+    data_shards: Optional[int] = None
+    category_shards: Optional[int] = None
+    #: pixel metrics by the fused program of evaluation/metrics_device.py;
+    #: None: on when the anomaly maps are on a CUDA device
+    device_metrics: Optional[bool] = None
+
+    def __post_init__(self):
+        if self.scorer == "mahalanobis":
+            raise NotImplementedError(
+                "scorer='mahalanobis' is slice 7 of the port (ROADMAP.md); use 'knn'")
+        if self.scorer != "knn":
+            raise ValueError(f"unknown scorer {self.scorer!r}; valid: knn, mahalanobis")
+        if self.coreset is not None:
+            raise NotImplementedError("coreset is slice 7 of the port (ROADMAP.md)")
+        for name in ("data_shards", "category_shards"):
+            if (getattr(self, name) or 1) > 1:
+                raise NotImplementedError(
+                    f"{name} > 1 (multi-device evaluation) is slice 9 of the port (ROADMAP.md)")
+        if self.upsample_size is None:
+            object.__setattr__(self, "upsample_size", self.imsize[0])

@@ -1,14 +1,15 @@
-"""MVTec-AD images: decoding, the train/val split, and the train-good
-arrays of one subject.
+"""MVTec-AD images: decoding, the train/val split, the train-good arrays
+of one subject and its test set.
 
-Counterpart of ssad_tpu/data/mvtec.py:25-38 (load_image), :53-63
-(load_stack, its PIL path), :90-102 (train_val_split) and :105-217
-(PretextData, prepare_pretext_data: the split images with the cut pool
-and object masks the pretext synthesizer reads).  ``load_split`` is the
-split images alone, which is all the patch export reads; ``data.masks``
-(OpenCV) is imported only where masks are made.  The native threaded
-loader waits for the training slice; the test-set loaders for
-the evaluation slice.
+Counterpart of ssad_tpu/data/mvtec.py:25-38 (load_image), :41-50
+(load_mask), :53-63 (load_stack, its PIL path), :66-87 (load_mask_stack),
+:90-102 (train_val_split), :105-217 (PretextData, prepare_pretext_data:
+the split images with the cut pool and object masks the pretext
+synthesizer reads) and :221-252 (MVTecTestData,
+prepare_mvtec_test_data).  ``load_split`` is the split images alone,
+which is all the patch export reads; ``data.masks`` (OpenCV) is imported
+only where masks are made.  The native threaded loader is slice 9 of
+the port.
 """
 
 from __future__ import annotations
@@ -37,11 +38,30 @@ def load_image(path, imsize: Tuple[int, int]) -> np.ndarray:
         return np.asarray(img, np.float32) / 255.0
 
 
+def load_mask(path: Optional[str | Path], imsize: Tuple[int, int]) -> np.ndarray:
+    """GT mask → (H, W) float {0,1}: PIL resize, grey, > 127; blank when
+    ``path`` is None (reference functional.py:20-24)."""
+    if path is None:
+        return np.zeros(imsize, np.float32)
+    from PIL import Image
+
+    with Image.open(path) as img:
+        img = img.resize((imsize[1], imsize[0])).convert("L")
+        return (np.asarray(img, np.float32) > 127).astype(np.float32)
+
+
 def load_stack(paths: Sequence[str], imsize: Tuple[int, int]) -> np.ndarray:
     """Decode + resize a list of images → (N, H, W, 3) float32."""
     if not paths:
         return np.zeros((0,) + tuple(imsize) + (3,), np.float32)
     return np.stack([load_image(p, imsize) for p in paths])
+
+
+def load_mask_stack(paths: Sequence[Optional[str]], imsize: Tuple[int, int]) -> np.ndarray:
+    """GT masks (None: blank) → (N, H, W) float {0,1}."""
+    if not paths:
+        return np.zeros((0,) + tuple(imsize), np.float32)
+    return np.stack([load_mask(p, imsize) for p in paths])
 
 
 def train_val_split(
@@ -184,3 +204,31 @@ def prepare_pretext_data(
         data.val_masks, data.val_coords, data.val_counts = _image_masks(
             split.val_images, imsize, patch_localization)
     return data
+
+
+@dataclasses.dataclass
+class MVTecTestData:
+    """The test set of one subject (reference MVTecDataset,
+    datasets.py:50-84)."""
+
+    subject: str
+    imsize: Tuple[int, int]
+    images: np.ndarray  # (N, H, W, 3) float32, un-normalized
+    ground_truths: np.ndarray  # (N, H, W) float {0,1}
+    labels: np.ndarray  # (N,) {0,1}
+    filenames: List[str]
+
+
+def prepare_mvtec_test_data(dataset_dir: str | Path, subject: str,
+                            imsize: Tuple[int, int] = (256, 256)) -> MVTecTestData:
+    """Every ``test/<defect>/*.png`` of the subject (``fs.test_images``
+    order), its GT mask (blank for 'good') and its label."""
+    subject_dir = Path(dataset_dir) / subject
+    files = fs.test_images(subject_dir)
+    if not files:
+        raise FileNotFoundError(f"no test images under {subject_dir}/test")
+    images = load_stack(files, imsize)
+    gts = load_mask_stack([fs.ground_truth_path(f) for f in files], imsize)
+    labels = (gts.reshape(len(files), -1).sum(axis=1) > 0).astype(np.int32)
+    return MVTecTestData(subject=subject, imsize=imsize, images=images, ground_truths=gts,
+                         labels=labels, filenames=list(files))

@@ -1,6 +1,7 @@
 """AnomalyDetector: k-NN cosine scoring against a normal-embedding bank.
 
-Counterpart of ssad_tpu/models/detector.py:24-117.  fit() splits the
+Counterpart of ssad_tpu/models/detector.py:24-117 (the k-NN detector;
+the Mahalanobis one is slice 7 of the port).  fit() splits the
 normality embeddings 70/30, keeps the 70% as the bank and calibrates the
 threshold on the 30%: the max validation score (the reference's rule,
 models.py:352-361) or its .99 quantile.  Scoring goes through
@@ -25,13 +26,16 @@ from ssad_tpu_torch.ops.knn import knn_cosine_scores
 
 @dataclasses.dataclass
 class AnomalyDetector:
-    """k-NN cosine anomaly scorer (image level; the patch-map reshape of
-    the JAX detector waits for the evaluation slice; the patch path
-    reshapes its scores itself, evaluation/inference.py)."""
+    """k-NN cosine anomaly scorer.  In patch mode ``predict`` reshapes the
+    ``batch`` · ``num_patches`` scores to (batch, 1, side, side) maps
+    (models.py:363-370)."""
 
     k: int = 3
     #: 'max' (the reference rule) or 'quantile' (.99 quantile)
     threshold_rule: str = "max"
+    patch_level: bool = False
+    batch: Optional[int] = None
+    num_patches: Optional[int] = None
 
     bank: Optional[torch.Tensor] = None  # (M, D) fitted normality bank
     threshold: Optional[float] = None
@@ -80,10 +84,17 @@ class AnomalyDetector:
         return self
 
     def predict(self, queries: torch.Tensor) -> torch.Tensor:
-        """Mean cosine distance to the k nearest bank rows."""
+        """Mean cosine distance to the k nearest bank rows; patch mode
+        reshapes them to (batch, 1, side, side) maps."""
         if self.bank is None:
             raise RuntimeError("fit() before predict()")
-        return knn_cosine_scores(torch.as_tensor(queries), self.bank, k=self.k)
+        scores = knn_cosine_scores(torch.as_tensor(queries), self.bank, k=self.k)
+        if self.patch_level:
+            if not self.batch or not self.num_patches:
+                raise ValueError("patch mode needs batch and num_patches")
+            side = int(self.num_patches ** 0.5)
+            scores = scores.reshape(self.batch, 1, side, side)
+        return scores
 
     def predict_labels(self, queries: torch.Tensor) -> torch.Tensor:
         """Binary anomaly decision by the calibrated threshold."""

@@ -21,8 +21,8 @@ def test_slice_modules_import_without_jax():
     code = (
         "import importlib, sys\n"
         f"for m in {MODULES!r}: importlib.import_module(m)\n"
-        "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
-        "             or m == 'ssad_tpu' or m.startswith('ssad_tpu.'))\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in\n"
+        "             ('jax', 'ssad_tpu', 'matplotlib', 'sklearn', 'pandas', 'cv2'))\n"
         "print(len(sys.modules), bad)\n"
         "sys.exit(1 if bad else 0)\n"
     )
@@ -30,11 +30,18 @@ def test_slice_modules_import_without_jax():
         [sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True, timeout=120
     )
     assert proc.returncode == 0, proc.stdout + proc.stderr
-    assert len(MODULES) >= 39, len(MODULES)  # a dropped module fails here
+    assert len(MODULES) >= 45, len(MODULES)  # a dropped module fails here
+    for m in ("ssad_tpu_torch.evaluation.evaluator", "ssad_tpu_torch.evaluation.metrics",
+              "ssad_tpu_torch.evaluation.metrics_device", "ssad_tpu_torch.evaluation.error_analysis",
+              "ssad_tpu_torch.models.gradcam", "ssad_tpu_torch.utils.convert"):
+        assert m in MODULES, m
 
 
+#: the JAX stack and the JAX package, and the host libraries the card
+#: machine lacks (matplotlib, sklearn, pandas, OpenCV)
 _FORBIDDEN = re.compile(
-    r"^\s*(import\s+(jax|flax|optax|orbax)\b|from\s+(jax|flax|optax|orbax)\b"
+    r"^\s*(import\s+(jax|flax|optax|orbax|matplotlib|sklearn|pandas|cv2)\b"
+    r"|from\s+(jax|flax|optax|orbax|matplotlib|sklearn|pandas|cv2)\b"
     r"|import\s+ssad_tpu(\s|$|\.|,)|from\s+ssad_tpu(\s|\.)(?!_torch))",
     re.MULTILINE,
 )
@@ -54,7 +61,9 @@ def test_no_jax_or_jax_package_imports_in_source(path):
 def test_forbidden_pattern_catches_the_jax_package():
     for line in ("import jax", "from jax import numpy", "import ssad_tpu",
                  "from ssad_tpu.ops import knn", "from ssad_tpu import config",
-                 "    import flax.linen as nn", "import optax"):
+                 "    import flax.linen as nn", "import optax", "    import matplotlib",
+                 "import matplotlib.pyplot as plt", "from sklearn.manifold import TSNE",
+                 "import pandas as pd", "import cv2", "    from cv2 import Canny"):
         assert _FORBIDDEN.search(line), line
     for line in ("from ssad_tpu_torch.ops import knn", "import ssad_tpu_torch"):
         assert not _FORBIDDEN.search(line), line
@@ -73,7 +82,7 @@ def test_resolve_device_defaults_to_cuda_or_raises():
             resolve_device("cuda")
 
 
-@pytest.mark.parametrize("command", ["score", "qa", "train"])
+@pytest.mark.parametrize("command", ["score", "qa", "train", "evaluate", "infer"])
 def test_cli_without_device_flag_refuses_the_cpu(tmp_path, command):
     if torch.cuda.is_available():
         pytest.skip("a card is present: the default device is usable")
@@ -82,6 +91,9 @@ def test_cli_without_device_flag_refuses_the_cpu(tmp_path, command):
         "score": ["--artifact", str(tmp_path / "missing.ssadpt"), str(tmp_path / "x.npy")],
         "qa": ["--dataset-dir", str(tmp_path), "--subject", "bottle"],
         "train": ["--dataset-dir", str(tmp_path), "--subject", "bottle"],
+        "evaluate": ["--dataset-dir", str(tmp_path), "--models-dir", str(tmp_path)],
+        "infer": ["--dataset-dir", str(tmp_path), "--models-dir", str(tmp_path),
+                  "--subject", "bottle"],
     }[command]
     proc = subprocess.run(
         [sys.executable, "-m", "ssad_tpu_torch.cli", command, *args],
