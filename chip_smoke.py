@@ -129,13 +129,43 @@ failure; the script exits 0 only when all pass):
    defect prediction whose saliency the ReLU cuts everywhere is zero too,
    and is counted) and the on-card metrics against the oracles (2e-4;
    AUPRO 3e-4).
-8. Print one JSON line of kernel records (all three kernels, with their
-   launches on the training and evaluation paths), the card line again,
-   and the final {"ok": true, "device": ...} line.
+8. Drive the other scorers and backbones.  (a) A wide_resnet50_2 PeraNet
+   at its published widths (bottleneck (3, 4, 6, 3), inner width 2×,
+   3,584 → 512 head; bf16, a seeded init: no pretrained weights are in
+   the repository), saved with its TrainConfig, through ``cli export
+   --mode patch --n-normality-images 10 --coreset 2048 --knn-k 1`` on
+   phase 4's bottle tree (8,410 windows → 5,887 train rows → a 2,048-row
+   bank: csrc/knn_tiled.cu) and 16 HTTP requests; launch counts reset
+   just before and read just after, every tiled k-NN call recorded.
+   Then: each recorded call (the fit's 2,523 calibration rows, the
+   calibration summary's 3,364-window chunks, the warmup and the served
+   batches of 6,728 windows) against the plain tiled k-NN on its own
+   inputs (1e-5; as many calls as launches), the served maps against the
+   plain tiled k-NN on the scorer's own embeddings (1e-5), the stem
+   kernel against the plain stem with this model's stem (phase 2's
+   tolerance), the tiled kernel at 6,728 × 2,048 (ms, device µs, plain,
+   library, bound), the batch-8 ms and device µs by group, the export's
+   stages (normality, the coreset selection under
+   ``set_sync_debug_mode("error")``, the fit) equal to the artifact's
+   bank, the peak memory, and the f32 model on 8 windows on the card
+   (TF32 off) against the CPU port (1e-3).  (b) ``cli evaluate
+   --patch-level --coreset 512 --knn-k 1`` on phase 7's checkpoint: a
+   512-row coreset sends 6,728-window batches to csrc/knn.cu; every call
+   of it, recorded, against the plain k-NN (1e-5), and its record at
+   that shape.  (c) ``cli evaluate --scorer mahalanobis`` at both
+   levels, ``cli export --scorer mahalanobis`` of phase 6's checkpoint
+   and 8 HTTP requests; the fits and scores with TF32 on and off
+   against a float64 host reference (scores relative 1e-5, mean 1e-6,
+   precision 1e-4 relative; equal scores either way), and the served
+   scores equal to evaluate's detector's.
+9. Print one JSON line of kernel records (all three kernels, with their
+   launches on the training, evaluation and scorer paths), the card line
+   again, and the final {"ok": true, "device": ...} line.
 """
 
 from __future__ import annotations
 
+import contextlib
 import http.client
 import io
 import json
@@ -174,6 +204,12 @@ SYNTH_CASES = (("bottle", False), ("hazelnut", False), ("carpet", False), ("bott
 TRAIN_BATCH, TRAIN_MIN_LEN, TRAIN_MIN_BANK, TRAIN_TIMED, TRAIN_PARITY_BATCH = 96, 768, 16, 10, 16
 #: evaluation: MVTec bottle's test split (good, then its three defect types)
 EVAL_SPLIT = (("good", 20), ("broken_large", 20), ("broken_small", 22), ("contamination", 21))
+#: scorers: the wide patch path (10 normality images → 8,410 windows → 5,887
+#: train rows → a 2,048-row coreset: the tiled kernel); a 512-row coreset in
+#: phase 7's patch evaluate (the resident kernel at 6,728 queries)
+WIDE_ARCH, WIDE_NORMALITY, WIDE_CORESET, WIDE_F32_WINDOWS = "wide_resnet50_2", 10, 2048, 8
+EVAL_CORESET = 512
+MAHA_REL_TOL = 1e-5
 
 
 def fail(msg: str) -> None:
@@ -273,9 +309,9 @@ def cuda_ms(fn, iters: int = 200, warmup: int = 10, budget_s: float = 0.3) -> fl
     return start.elapsed_time(end) / iters
 
 
-def device_us(fn, match: str, calls: int = 50) -> float:
-    """The profiler's device time per call of the kernels whose name holds
-    ``match``, over ``calls`` back-to-back calls after a warmup."""
+def device_kernel_us(fn, match: str, calls: int = 50) -> list:
+    """The profiler's device µs of each kernel whose name holds ``match``,
+    over ``calls`` back-to-back calls after a warmup."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -290,7 +326,13 @@ def device_us(fn, match: str, calls: int = 50) -> float:
                if e.device_type == torch.autograd.DeviceType.CUDA and match in e.name]
     if not kernels:
         fail(f"the profiler saw no device time for {match!r}")
-    return sum(e.time_range.end - e.time_range.start for e in kernels) / calls
+    return [e.time_range.end - e.time_range.start for e in kernels]
+
+
+def device_us(fn, match: str, calls: int = 50) -> float:
+    """The profiler's device time per call of the kernels whose name holds
+    ``match``, over ``calls`` back-to-back calls after a warmup."""
+    return sum(device_kernel_us(fn, match, calls)) / calls
 
 
 def knn_bound(n: int, m: int, d: int):
@@ -500,6 +542,34 @@ def post(port: int, body: bytes, path: str = "/score") -> tuple:
     return json.loads(data), ms
 
 
+def http_fanout(port: int, bodies, paths, threads: int = N_THREADS) -> tuple:
+    """POST ``bodies[i]`` to ``paths[i]`` from ``threads`` client threads
+    → (responses, latencies ms, wall s); fails if a request fails or a
+    thread does not finish."""
+    n = len(bodies)
+    results, latencies, errors = [None] * n, [None] * n, []
+
+    def client(tid: int):
+        try:
+            for i in range(tid, n, threads):
+                results[i], latencies[i] = post(port, bodies[i], paths[i])
+        except Exception as e:  # reported by the main thread below
+            errors.append(repr(e))
+
+    workers = [threading.Thread(target=client, args=(t,)) for t in range(threads)]
+    t0 = time.perf_counter()
+    for t in workers:
+        t.start()
+    for t in workers:
+        t.join(timeout=300)
+    wall = time.perf_counter() - t0
+    if any(t.is_alive() for t in workers):
+        fail("HTTP client threads did not finish")
+    if errors:
+        fail(f"HTTP requests failed: {errors[:3]}")
+    return results, latencies, wall
+
+
 def drive_serving_path(device, work: Path):
     """Phase 3: the full-width serving path through the user entry points."""
     import torch
@@ -561,32 +631,13 @@ def drive_serving_path(device, work: Path):
     models, warmup_s = _load_artifact_models([str(artifact)], 5.0, 256, device)
     batcher, meta = models["bottle"]
     server = AnomalyHTTPServer(models=models, port=0).start()
-    results, latencies, errors = [None] * N_REQUESTS, [None] * N_REQUESTS, []
-
-    def client(tid: int):
-        try:
-            for i in range(tid, N_REQUESTS, N_THREADS):
-                results[i], latencies[i] = post(server.port, bodies[i])
-        except Exception as e:  # reported by the main thread below
-            errors.append(repr(e))
-
     try:
-        threads = [threading.Thread(target=client, args=(t,)) for t in range(N_THREADS)]
-        t0 = time.perf_counter()
-        for t in threads:
-            t.start()
-        for t in threads:
-            t.join(timeout=300)
-        http_s = time.perf_counter() - t0
-        if any(t.is_alive() for t in threads):
-            fail("HTTP client threads did not finish")
+        results, latencies, http_s = http_fanout(server.port, bodies, ["/score"] * N_REQUESTS)
         batcher_stats = batcher.stats()
     finally:
         server.stop()
     launches = knn.knn_cosine_scores_cuda.launches
     # ---- end of the main path ---------------------------------------------
-    if errors:
-        fail(f"HTTP requests failed: {errors[:3]}")
     print(f"main path: export {export_s:.2f} s, warmup {warmup_s:.2f} s, "
           f"{N_REQUESTS} requests in {http_s:.3f} s, batches {batcher_stats['batches']}, "
           f"knn launches {launches}", flush=True)
@@ -597,8 +648,8 @@ def drive_serving_path(device, work: Path):
 
     scorer = batcher._fn
     fit_rows = BANK_ROWS - round(0.3 * BANK_ROWS)  # the 70/30 split: 700
-    if tuple(scorer.bank.shape) != (fit_rows, 512):
-        fail(f"fitted bank {tuple(scorer.bank.shape)} != ({fit_rows}, 512)")
+    if tuple(scorer.detector.bank.shape) != (fit_rows, 512):
+        fail(f"fitted bank {tuple(scorer.detector.bank.shape)} != ({fit_rows}, 512)")
     http_scores = np.array([r["score"] for r in results], np.float32)
     http_labels = np.array([r["label"] for r in results])
     direct_scores, direct_labels, direct_logits = scorer(np.stack(expected_inputs))
@@ -613,7 +664,7 @@ def drive_serving_path(device, work: Path):
         scorer.engine.predict_batch(im.normalize_imagenet(x[lo:lo + BATCH]))[1]
         for lo in range(0, N_REQUESTS, BATCH)
     ])
-    plain = knn.knn_cosine_scores_plain(embs, scorer.bank, k=scorer.k).cpu().numpy()
+    plain = knn.knn_cosine_scores_plain(embs, scorer.detector.bank, k=scorer.k).cpu().numpy()
     plain_vs_http = float(np.max(np.abs(plain - http_scores)))
     if not plain_vs_http <= KNN_TOL:
         fail(f"served scores vs plain k-NN path: max|d|={plain_vs_http}")
@@ -724,28 +775,9 @@ def drive_patch_path(device, work: Path, seed: int = 1):
     models, warmup_s = _load_artifact_models([str(artifact)], 5.0, 256, device)
     batcher, meta = models["bottle"]
     server = AnomalyHTTPServer(models=models, port=0).start()
-    results = [None] * PATCH_REQUESTS
-    latencies = [None] * PATCH_REQUESTS
-    errors = []
-
-    def client(tid: int):
-        try:
-            for i in range(tid, PATCH_REQUESTS, N_THREADS):
-                path = "/score?heatmap=1" if i % 4 < 2 else "/score"
-                results[i], latencies[i] = post(server.port, bodies[i], path)
-        except Exception as e:  # reported by the main thread below
-            errors.append(repr(e))
-
     try:
-        threads = [threading.Thread(target=client, args=(t,)) for t in range(N_THREADS)]
-        t0 = time.perf_counter()
-        for t in threads:
-            t.start()
-        for t in threads:
-            t.join(timeout=300)
-        http_s = time.perf_counter() - t0
-        if any(t.is_alive() for t in threads):
-            fail("patch HTTP client threads did not finish")
+        results, latencies, http_s = http_fanout(server.port, bodies, [
+            "/score?heatmap=1" if i % 4 < 2 else "/score" for i in range(PATCH_REQUESTS)])
         batcher_stats = batcher.stats()
     finally:
         server.stop()
@@ -755,8 +787,6 @@ def drive_patch_path(device, work: Path, seed: int = 1):
         "stem_pool": stem_pool.stem_pool_cuda.launches,
     }
     # ---- end of the patch path --------------------------------------------
-    if errors:
-        fail(f"patch HTTP requests failed: {errors[:3]}")
     batches = batcher_stats["batches"]
     normality_chunks = -(-NORMALITY_IMAGES // 4)
     calibration_chunks = -(-(PATCH_IMAGES - NORMALITY_IMAGES) // 4)
@@ -772,11 +802,12 @@ def drive_patch_path(device, work: Path, seed: int = 1):
 
     scorer = batcher._fn
     fit_rows = NORMALITY_IMAGES * WINDOWS - round(0.3 * NORMALITY_IMAGES * WINDOWS)
-    if tuple(scorer.bank.shape) != (fit_rows, 512) or meta["knn_impl"] != "cuda_tiled":
-        fail(f"patch bank {tuple(scorer.bank.shape)} != ({fit_rows}, 512) or knn_impl "
+    if tuple(scorer.detector.bank.shape) != (fit_rows, 512) or meta["knn_impl"] != "cuda_tiled":
+        fail(f"patch bank {tuple(scorer.detector.bank.shape)} != ({fit_rows}, 512) or knn_impl "
              f"{meta['knn_impl']!r}")
-    if not isinstance(scorer.knn_bank, knn.TiledBank) or scorer.knn_bank.shape != (fit_rows, 512):
-        fail(f"the served scorer scores against {type(scorer.knn_bank).__name__}, not the "
+    served_bank = scorer.detector.scoring_bank()
+    if not isinstance(served_bank, knn.TiledBank) or served_bank.shape != (fit_rows, 512):
+        fail(f"the served scorer scores against {type(served_bank).__name__}, not the "
              f"bank's TiledBank split once")
     if (meta["mode"], meta["upsample_to"], meta["batch"]) != ("patch", IMSIZE, BATCH):
         fail(f"patch header {meta['mode']}, upsample_to {meta['upsample_to']}, batch {meta['batch']}")
@@ -805,7 +836,7 @@ def drive_patch_path(device, work: Path, seed: int = 1):
     rebuilt = []
     for lo in range(0, PATCH_REQUESTS, BATCH):
         _, emb, n = scorer.engine.predict_patches(im.normalize_imagenet(x[lo:lo + BATCH]))
-        scores = knn.knn_cosine_scores_tiled_plain(emb, scorer.bank, k=scorer.k)
+        scores = knn.knn_cosine_scores_tiled_plain(emb, scorer.detector.bank, k=scorer.k)
         side = int(round(n ** 0.5))
         rebuilt.append(im.upsample_anomaly_maps(scores.reshape(-1, side, side), IMSIZE))
     rebuilt = torch.cat(rebuilt).cpu().numpy()
@@ -823,7 +854,7 @@ def drive_patch_path(device, work: Path, seed: int = 1):
     lat = np.sort(np.array(latencies))
     serving = {
         "patches_per_batch": BATCH * WINDOWS,
-        "bank_rows": int(scorer.bank.shape[0]),
+        "bank_rows": int(scorer.detector.bank.shape[0]),
         "batch8_scorer_ms_p50": float(np.median(times)),
         "batch8_scorer_ms_sorted": sorted(times),
         "http_p50_ms": float(np.percentile(lat, 50)),
@@ -1187,7 +1218,7 @@ def drive_training(device, work: Path) -> dict:
         fail(f"knn kernel launches {launches} < fit + one scored batch")
     x = torch.from_numpy(imgs).to(device)
     _, emb = scorer.engine.predict_batch(im.normalize_imagenet(x))
-    plain = knn.knn_cosine_scores_plain(emb, scorer.bank, k=scorer.k).cpu().numpy()
+    plain = knn.knn_cosine_scores_plain(emb, scorer.detector.bank, k=scorer.k).cpu().numpy()
     err = float(np.max(np.abs(plain - scores)))
     if scores.shape != (BATCH,) or not np.isfinite(logits).all() or not err <= KNN_TOL:
         fail(f"trained-model scores {scores.shape} vs plain k-NN path: max|d|={err}")
@@ -1198,7 +1229,7 @@ def drive_training(device, work: Path) -> dict:
                                       val_fraction=cfg.train_val_split, seed=cfg.seed)
     record = {"train_s": train_s, "export_s": export_s, "bank_rows": rows,
               "knn_launches": launches, "served_vs_plain_knn_max_abs": err,
-              "fit_rows": int(scorer.bank.shape[0]), "anomalous": int(labels.sum()),
+              "fit_rows": int(scorer.detector.bank.shape[0]), "anomalous": int(labels.sum()),
               # the card test's step at the CPU limits, and full width on the tree
               "parity": [train_step_parity(device, sp.disc_data(64), 8, sp.CPU_LIMITS),
                          train_step_parity(device, data, TRAIN_PARITY_BATCH,
@@ -1589,6 +1620,456 @@ def drive_evaluation(device, work: Path) -> dict:
     return record
 
 
+@contextlib.contextmanager
+def recording(module, name: str):
+    """Replace the kernel wrapper ``module.name`` by one that records each
+    call's (queries, bank, k, result); its ``launches`` count carries over
+    and back."""
+    original = getattr(module, name)
+    calls = []
+
+    def wrapper(queries, bank, k=3):
+        out = original(queries, bank, k=k)
+        calls.append((queries.detach().clone(), bank, k, out.detach().clone()))
+        return out
+
+    wrapper.launches = original.launches  # the wrapper's body counts on this name
+    setattr(module, name, wrapper)
+    try:
+        yield calls
+    finally:
+        original.launches = wrapper.launches
+        setattr(module, name, original)
+
+
+def knn_shape_record(kernel, plain, bound, q, bank, raw_bank, k: int, match: str,
+                     launches: int) -> dict:
+    """A k-NN kernel at a main-path shape, on that path's own inputs
+    (``bank`` as the path holds it, ``raw_bank`` its f32 rows): |kernel −
+    plain|, kernel / plain / library ms (CUDA events), device µs per call
+    (the sum over 50 calls / 50, and the least and most of the records,
+    and how many records the profiler kept), bound."""
+    import torch
+
+    from ssad_tpu_torch.ops import knn
+
+    out = kernel(q, bank, k=k)
+    err = float((out - plain(q, bank, k=k)).abs().max())
+    qn, bn = knn.l2_normalize(q), knn.l2_normalize(raw_bank)
+    rec = {"shape": [q.shape[0], bank.shape[0], q.shape[1]], "k": k, "launches": launches,
+           "max_abs_err": err, "ms": cuda_ms(lambda: kernel(q, bank, k=k)),
+           "plain_ms": cuda_ms(lambda: plain(q, bank, k=k), warmup=2),
+           "library_ms": cuda_ms(lambda: torch.topk(qn @ bn.T, k, dim=1), warmup=2)}
+    us = device_kernel_us(lambda: kernel(q, bank, k=k), match, 50)
+    rec.update(device_us=sum(us) / 50, device_us_min_max=[min(us), max(us)],
+               device_records=len(us))
+    rec["bound_ms"], rec["bound_by"] = bound(q.shape[0], bank.shape[0], q.shape[1])
+    return rec
+
+
+def served_batch_profile(scorer, x) -> dict:
+    """One served batch under the profiler: wall µs, busy µs and device µs
+    by group (stem kernel, tiled k-NN kernel, copies, the model and maps)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    scorer.score_tensor(x)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        scorer.score_tensor(x)
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    events = device_events(prof)
+    groups = {"stem kernel": 0.0, "tiled k-NN kernel": 0.0, "copies": 0.0, "model and maps": 0.0}
+    for name, t0, t1 in events:
+        key = ("stem kernel" if "stem_pool" in name else "tiled k-NN kernel" if "knn_tiled"
+               in name else "copies" if "memcpy" in name.lower() or "memset" in name.lower()
+               else "model and maps")
+        groups[key] += t1 - t0
+    busy = busy_us(events)
+    return {"wall_us": wall_us, "busy_us": busy, "idle_share": 1 - busy / wall_us,
+            "device_ops": len(events), "device_us_by_group": groups}
+
+
+def drive_wide_patch_path(device, work: Path) -> dict:
+    """Phase 8a: the patch path of a wide_resnet50_2 PeraNet at its published
+    widths (bf16, seeded init) through cli export (10 normality images, a
+    2,048-row coreset, k = 1) and 16 HTTP requests on phase 4's bottle tree."""
+    import torch
+
+    from ssad_tpu_torch import cli
+    from ssad_tpu_torch.config import DataConfig, ModelConfig, TrainConfig
+    from ssad_tpu_torch.data.mvtec import load_split
+    from ssad_tpu_torch.evaluation.inference import InferenceEngine, normality_embeddings
+    from ssad_tpu_torch.models.detector import AnomalyDetector
+    from ssad_tpu_torch.models.peranet import build_model, init_model
+    from ssad_tpu_torch.ops import image as im
+    from ssad_tpu_torch.ops import knn, stem_pool
+    from ssad_tpu_torch.ops.coreset import kcenter_greedy
+    from ssad_tpu_torch.ops.patches import extract_patches
+    from ssad_tpu_torch.serving.cli import _load_artifact_models
+    from ssad_tpu_torch.serving.server import AnomalyHTTPServer
+    from ssad_tpu_torch.train.checkpoint import save_checkpoint
+
+    t0 = time.perf_counter()
+    cfg = TrainConfig(data=DataConfig(subject="bottle", imsize=(IMSIZE, IMSIZE)),
+                      model=ModelConfig(backbone=WIDE_ARCH))
+    model = init_model(build_model(cfg.model), torch.Generator().manual_seed(8))
+    sd = model.state_dict()
+    models_dir = work / "wide_models"
+    save_checkpoint(models_dir / "bottle", sd, None, cfg)
+    n_params = sum(p.numel() for p in model.parameters())
+    in_features = model.concatenator[0].in_features
+    del model
+    rec = {"backbone": WIDE_ARCH, "parameters": n_params, "head_in_features": in_features,
+           "checkpoint_s": time.perf_counter() - t0}
+    rng = np.random.default_rng(9)
+    imgs = synthetic_images(rng, PATCH_REQUESTS)
+    bodies = []
+    for img in imgs:
+        buf = io.BytesIO()
+        np.save(buf, img)
+        bodies.append(buf.getvalue())
+
+    # ---- the wide patch path: counts to 0 just before, read just after -----
+    knn.knn_cosine_scores_tiled_cuda.launches = 0
+    stem_pool.stem_pool_cuda.launches = 0
+    torch.cuda.reset_peak_memory_stats(device)
+    artifact = work / "wide_patch.ssadpt"
+    # every tiled k-NN call of the path is recorded: the fit's calibration,
+    # the calibration summary's chunks, the warmup and the served batches
+    with recording(knn, "knn_cosine_scores_tiled_cuda") as calls:
+        t0 = time.perf_counter()
+        rc = cli.main(["export", "--models-dir", str(models_dir), "--subject", "bottle",
+                       "--mode", "patch", "--dataset-dir", str(work / "mvtec"),
+                       "--n-normality-images", str(WIDE_NORMALITY), "--coreset",
+                       str(WIDE_CORESET), "--knn-k", "1", "--batch", str(BATCH),
+                       "--out", str(artifact)])
+        if rc != 0:
+            fail(f"cli export of the {WIDE_ARCH} checkpoint returned {rc}")
+        rec["export_s"] = time.perf_counter() - t0
+        models, rec["warmup_s"] = _load_artifact_models([str(artifact)], 5.0, 256, device)
+        batcher, meta = models["bottle"]
+        server = AnomalyHTTPServer(models=models, port=0).start()
+        try:
+            results, latencies, rec["http_wall_s"] = http_fanout(server.port, bodies, [
+                "/score?heatmap=1" if i % 4 < 2 else "/score" for i in range(PATCH_REQUESTS)])
+            batches = batcher.stats()["batches"]
+        finally:
+            server.stop()
+        launches = {"knn_cosine_scores_tiled": knn.knn_cosine_scores_tiled_cuda.launches,
+                    "stem_pool": stem_pool.stem_pool_cuda.launches}
+    # ---- end of the wide patch path ----------------------------------------
+    rec.update(launches=launches, batches=batches,
+               peak_memory_gib=torch.cuda.max_memory_allocated(device) / 2**30,
+               http_p50_ms=float(np.percentile(latencies, 50)),
+               http_p95_ms=float(np.percentile(latencies, 95)))
+    scorer = batcher._fn
+    # each recorded call against the plain tiled k-NN on its own inputs
+    errs = {}
+    for q, bank, k, out in calls:
+        key = f"{q.shape[0]}x{bank.shape[0]}"
+        errs[key] = max(errs.get(key, 0.0), float(
+            (out - knn.knn_cosine_scores_tiled_plain(q, bank, k=k)).abs().max()))
+    rec["tiled_calls"], rec["tiled_vs_plain_knn"] = len(calls), errs
+    if len(calls) != launches["knn_cosine_scores_tiled"]:
+        fail(f"wide patch path: {len(calls)} recorded tiled k-NN calls, "
+             f"{launches['knn_cosine_scores_tiled']} launches")
+    if any(not v <= KNN_TOL for v in errs.values()):
+        fail(f"wide patch path: tiled kernel calls vs plain tiled k-NN {errs} > {KNN_TOL}")
+    del calls
+    val_chunks = -(-(PATCH_IMAGES - NORMALITY_IMAGES) // 4)
+    need = {"stem_pool": -(-WIDE_NORMALITY // 4) + val_chunks + batches,
+            "knn_cosine_scores_tiled": 1 + val_chunks + batches}
+    for name, least in need.items():
+        if launches[name] < least:
+            fail(f"wide patch path: {name} launched {launches[name]} times < {least}")
+    if (meta["model"]["backbone"], meta["knn_impl"], meta["k"], tuple(scorer.detector.bank.shape)) != (
+            WIDE_ARCH, "cuda_tiled", 1, (WIDE_CORESET, 512)) or in_features != 3584:
+        fail(f"wide artifact: backbone {meta['model']['backbone']}, knn_impl {meta['knn_impl']}, "
+             f"k {meta['k']}, bank {tuple(scorer.detector.bank.shape)}, head in {in_features}")
+
+    # the served maps against the plain tiled k-NN on the scorer's own
+    # embeddings, and the stem kernel against the plain stem on its windows
+    x = torch.from_numpy(imgs).to(device)
+    (direct,) = scorer(imgs)
+    http_vs_direct = max(abs(r["map_max"] - float(m.max())) for r, m in zip(results, direct))
+    if not np.isfinite(direct).all() or not http_vs_direct <= 1e-6:
+        fail(f"wide maps finite={np.isfinite(direct).all()}, HTTP vs direct {http_vs_direct}")
+    err, stem, batch_q = 0.0, None, None
+    for lo in range(0, PATCH_REQUESTS, BATCH):
+        xn = im.normalize_imagenet(x[lo:lo + BATCH])
+        _, emb, n = scorer.engine.predict_patches(xn)
+        plain = knn.knn_cosine_scores_tiled_plain(emb, scorer.detector.bank, k=1)
+        side = int(round(n ** 0.5))
+        maps = im.upsample_anomaly_maps(plain.reshape(-1, side, side), IMSIZE).cpu().numpy()
+        err = max(err, float(np.abs(maps - direct[lo:lo + BATCH]).max()))
+        batch_q = emb
+        if stem is None:
+            flat = extract_patches(xn.to(torch.bfloat16), dim=32, stride=8).reshape(-1, 32, 32, 3)
+            affine = scorer.engine.stem_affine()
+            o = stem_pool.stem_pool_cuda(flat, *affine).float()
+            r = stem_pool.stem_pool_plain(flat, *affine).float()
+            stem = {"windows": int(flat.shape[0]), "max_abs_err": float((o - r).abs().max()),
+                    "flipped_share": float((o != r).float().mean())}
+            if not (stem["flipped_share"] < STEM_MAX_FLIPPED
+                    and bool(torch.allclose(o, r, rtol=STEM_RTOL, atol=STEM_ATOL))):
+                fail(f"stem kernel vs plain on the {WIDE_ARCH} stem: {stem}")
+    if not err <= KNN_TOL:
+        fail(f"wide served maps vs plain tiled k-NN on the same embeddings: max|d|={err}")
+    rec["served_vs_plain_tiled_knn_max_abs"], rec["stem_vs_plain"] = err, stem
+    rec["tiled_at_coreset"] = knn_shape_record(
+        knn.knn_cosine_scores_tiled_cuda, knn.knn_cosine_scores_tiled_plain, tiled_bound,
+        batch_q, scorer.detector.scoring_bank(), scorer.detector.bank, 1, "knn_tiled",
+        launches["knn_cosine_scores_tiled"])
+    if not rec["tiled_at_coreset"]["max_abs_err"] <= KNN_TOL:
+        fail(f"tiled kernel at 6,728 x {WIDE_CORESET}: {rec['tiled_at_coreset']}")
+
+    # served batch of 8: host clock, and device µs by group
+    scorer(imgs[:BATCH])
+    times = []
+    for _ in range(10):
+        t0 = time.perf_counter()
+        scorer(imgs[:BATCH])
+        times.append((time.perf_counter() - t0) * 1e3)
+    rec["batch8_scorer_ms_p50"], rec["batch8_scorer_ms_sorted"] = float(np.median(times)), times
+    rec["batch8_profile"] = served_batch_profile(scorer, x[:BATCH])
+
+    # the export's stages through the library calls the CLI makes, each
+    # synchronised; the selection under set_sync_debug_mode("error")
+    data = load_split(work / "mvtec", "bottle", imsize=(IMSIZE, IMSIZE))
+    norm, rec["normality_ms"] = _timed(lambda: normality_embeddings(
+        scorer.engine, None, data.train_images, batch_size=4, min_bank_rows=10**9,
+        max_images=WIDE_NORMALITY, seed=0, patch_localization=True))
+    gen = torch.Generator().manual_seed(0)
+    m = norm.shape[0]
+    perm = torch.randperm(m, generator=gen).to(device)
+    train = norm[perm[round(0.3 * m):]]
+    first = int(torch.randint(0, train.shape[0], (), generator=gen))
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        start.record()
+        idx = kcenter_greedy(train, WIDE_CORESET, first=first)
+        end.record()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    end.synchronize()
+    rec["coreset_rows"] = [int(train.shape[0]), WIDE_CORESET]
+    rec["coreset_select_ms"] = start.elapsed_time(end)
+    det, rec["fit_ms"] = _timed(lambda: AnomalyDetector(k=1).fit(
+        norm, torch.Generator().manual_seed(0), coreset=WIDE_CORESET))
+    if not (torch.equal(train[idx], det.bank) and torch.equal(det.bank, scorer.detector.bank)):
+        fail("the coreset selected under sync checks, the library fit and the artifact's "
+             "bank differ")
+
+    # the f32 wide model on the card (TF32 off) against the CPU port on 8 windows
+    windows = flat[:WIDE_F32_WINDOWS]
+    embs = []
+    for dev in (device, torch.device("cpu")):
+        m32 = build_model(ModelConfig(backbone=WIDE_ARCH, compute_dtype="float32"))
+        m32.load_state_dict(sd, strict=True)
+        with torch.inference_mode():
+            out = InferenceEngine(m32, dev).patch_forward(windows.to(dev))
+        embs.append(out["latent_space"].cpu().numpy())
+    rec["f32_windows_cuda_vs_cpu_max_abs"] = float(np.abs(embs[0] - embs[1]).max())
+    rec["f32_embedding_scale"] = float(np.abs(embs[1]).max())
+    if not rec["f32_windows_cuda_vs_cpu_max_abs"] <= PATCH_F32_MODEL_TOL:
+        fail(f"f32 {WIDE_ARCH} windows cuda vs cpu: {rec['f32_windows_cuda_vs_cpu_max_abs']}")
+    return rec
+
+
+def drive_coreset_eval(device, work: Path) -> dict:
+    """Phase 8b: cli evaluate --patch-level --coreset 512 --knn-k 1 on phase
+    7's checkpoint and test split: the coreset sends patch batches of 6,728
+    windows to the resident k-NN kernel; every call of it against the plain
+    k-NN on the same inputs."""
+    from ssad_tpu_torch.ops import knn, stem_pool
+
+    argv = ["evaluate", "--subjects", "bottle", "--patch-level", "--coreset", str(EVAL_CORESET),
+            "--knn-k", "1", "--outputs-dir", str(work / "eval_coreset"),
+            "--dataset-dir", str(work / "synth_mvtec"), "--models-dir", str(work / "train_out"),
+            "--imsize", str(IMSIZE), "--seed", "0"]
+    # ---- the coreset path: counts to 0 just before, read just after --------
+    knn.knn_cosine_scores_cuda.launches = 0
+    knn.knn_cosine_scores_tiled_cuda.launches = 0
+    stem_pool.stem_pool_cuda.launches = 0
+    with recording(knn, "knn_cosine_scores_cuda") as calls:
+        lines, wall = _run_cli(argv)
+        launches = _eval_launches()
+    # ---- end of the coreset path -------------------------------------------
+    errs = {}
+    for q, bank, k, out in calls:
+        key = f"{q.shape[0]}x{bank.shape[0]}"
+        errs[key] = max(errs.get(key, 0.0),
+                        float((out - knn.knn_cosine_scores_plain(q, bank, k=k)).abs().max()))
+    full = [c for c in calls if c[0].shape[0] == BATCH * WINDOWS]
+    rec = {"wall_s": wall, "stdout": lines, "launches": launches, "calls": len(calls),
+           "vs_plain_knn": errs}
+    if (launches["knn_cosine_scores"] != len(calls) or launches["knn_cosine_scores_tiled"]
+            or not launches["stem_pool"] or not full or full[0][1].shape[0] != EVAL_CORESET):
+        fail(f"coreset evaluate: launches {launches}, {len(calls)} recorded calls, shapes "
+             f"{sorted(errs)}")
+    if any(not v <= KNN_TOL for v in errs.values()):
+        fail(f"coreset evaluate: knn kernel calls vs plain k-NN {errs} > {KNN_TOL}")
+    q, bank, k, _ = full[0]
+    rec["knn_at_coreset"] = knn_shape_record(
+        knn.knn_cosine_scores_cuda, knn.knn_cosine_scores_plain, knn_bound, q, bank, bank, k,
+        "knn_", launches["knn_cosine_scores"])
+    return rec
+
+
+def _maha_host(rows: np.ndarray, perm: np.ndarray, queries: np.ndarray,
+               mean: np.ndarray, precision: np.ndarray) -> dict:
+    """The Mahalanobis fit and scores in float64 on the host: the fit from
+    the same split, and the scores from the port's f32 mean and precision."""
+    m, d = rows.shape
+    n_val = max(round(0.3 * m), 1)
+    train = rows[perm[n_val:]].astype(np.float64) if m - n_val >= 2 else rows.astype(np.float64)
+    mu = train.mean(axis=0)
+    x = train - mu
+    cov = x.T @ x / max(train.shape[0] - 1, 1)
+    cov = 0.9 * cov + 0.1 * np.trace(cov) / d * np.eye(d)
+    q = queries.astype(np.float64) - mean.astype(np.float64)
+    scores = np.sqrt(np.maximum(np.einsum("qd,de,qe->q", q, precision.astype(np.float64), q),
+                                0.0))
+    return {"mean": mu, "precision": np.linalg.inv(cov), "scores": scores}
+
+
+def drive_mahalanobis(device, work: Path) -> dict:
+    """Phase 8c: cli evaluate --scorer mahalanobis at both levels on phase
+    7's tree, the same fits and scores through the library with TF32 on and
+    off against a float64 host reference, then cli export --scorer
+    mahalanobis of phase 6's checkpoint served over HTTP."""
+    import torch
+
+    from ssad_tpu_torch.config import EvalConfig
+    from ssad_tpu_torch.data import mvtec
+    from ssad_tpu_torch.evaluation import inference as inf
+    from ssad_tpu_torch.models.detector import MahalanobisDetector, mahalanobis_distances
+    from ssad_tpu_torch.ops import image as im
+    from ssad_tpu_torch.ops import stem_pool
+    from ssad_tpu_torch.serving.cli import _load_artifact_models
+    from ssad_tpu_torch.serving.server import AnomalyHTTPServer
+
+    root, models = work / "synth_mvtec", work / "train_out"
+    common = ["--dataset-dir", str(root), "--models-dir", str(models), "--imsize", str(IMSIZE),
+              "--seed", "0", "--subjects", "bottle", "--scorer", "mahalanobis"]
+    rec = {"runs": {}}
+    # ---- the Mahalanobis path: counts to 0 just before, read just after ----
+    stem_pool.stem_pool_cuda.launches = 0
+    for name, extra in (("evaluate_image", []), ("evaluate_patch", ["--patch-level"])):
+        lines, wall = _run_cli(["evaluate", "--outputs-dir", str(work / f"maha_{name}")]
+                               + extra + common)
+        rec["runs"][name] = {"wall_s": wall, "stdout": lines}
+    ckpt = models / "bottle" / "best_model.ckpt"
+    artifact = work / "maha_image.ssadpt"
+    _run_cli(["export", "--models-dir", str(models), "--subject", "bottle", "--batch",
+              str(BATCH), "--scorer", "mahalanobis", "--out", str(artifact)])
+    served, _ = _load_artifact_models([str(artifact)], 5.0, 256, device)
+    batcher, meta = served["bottle"]
+    test = mvtec.prepare_mvtec_test_data(root, "bottle", imsize=(IMSIZE, IMSIZE))
+    imgs = test.images[:BATCH].astype(np.float32)
+    bodies = []
+    for img in imgs:
+        buf = io.BytesIO()
+        np.save(buf, img)
+        bodies.append(buf.getvalue())
+    server = AnomalyHTTPServer(models=served, port=0).start()
+    try:
+        results, _, _ = http_fanout(server.port, bodies, ["/score"] * BATCH)
+    finally:
+        server.stop()
+    rec["stem_pool_launches"] = stem_pool.stem_pool_cuda.launches
+    # ---- end of the Mahalanobis path ----------------------------------------
+    if not rec["runs"]["evaluate_image"]["stdout"][-1].startswith("bottle: image_auroc=") or \
+            not rec["runs"]["evaluate_patch"]["stdout"][-1].startswith("bottle: pixel_auroc="):
+        fail(f"evaluate --scorer mahalanobis printed {rec['runs']}")
+    if rec["stem_pool_launches"] < 1 or meta["scorer"] != "mahalanobis" or meta["knn_impl"]:
+        fail(f"mahalanobis path: stem launches {rec['stem_pool_launches']}, header "
+             f"{meta['scorer']} / {meta['knn_impl']}")
+
+    # the fits and scores as the CLI computes them, TF32 on and off, against
+    # the float64 host reference
+    cfg = EvalConfig(imsize=(IMSIZE, IMSIZE))
+    engine, bank, _ = inf.load_engine(ckpt, device)
+    data = mvtec.prepare_pretext_data(root, "bottle", imsize=cfg.imsize, seed=0)
+    outputs = inf.predict_mvtec(engine, test, batch_size=96)
+    image_rows = inf.normality_embeddings(engine, bank, data.train_images, batch_size=96)
+    patch_rows = inf.normality_embeddings(
+        engine, None, data.train_images, batch_size=4, patch_localization=True,
+        min_bank_rows=10**9, max_images=cfg.n_normality_images, seed=0)
+    _, patch_q, _ = engine.predict_patches(
+        im.normalize_imagenet(torch.from_numpy(test.images[:BATCH]).to(device)))
+    checks = {}
+    flag = torch.backends.cuda.matmul.allow_tf32
+    try:
+        for tf32 in (False, True):
+            torch.backends.cuda.matmul.allow_tf32 = tf32
+            for level, rows, q in (("image", image_rows, outputs.embeddings),
+                                   ("patch", patch_rows, patch_q)):
+                perm = torch.randperm(rows.shape[0], generator=torch.Generator().manual_seed(0))
+                det = MahalanobisDetector().fit(rows, torch.Generator().manual_seed(0))
+                scores = mahalanobis_distances(q, det.mean, det.precision)
+                host = _maha_host(rows.cpu().numpy(), perm.numpy(), q.cpu().numpy(),
+                                  det.mean.cpu().numpy(), det.precision.cpu().numpy())
+                hp = host["precision"]
+                checks[f"{level}_tf32_{tf32}"] = {
+                    "rows": int(rows.shape[0]), "queries": int(q.shape[0]),
+                    "scores_rel": float(np.max(np.abs(scores.cpu().numpy() - host["scores"])
+                                               / host["scores"])),
+                    "mean_abs": float(np.abs(det.mean.cpu().numpy() - host["mean"]).max()),
+                    "precision_rel": float(np.abs(det.precision.cpu().numpy() - hp).max()
+                                           / np.abs(hp).max()),
+                    "scores": scores}
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = flag
+    for level in ("image", "patch"):
+        on, off = checks[f"{level}_tf32_True"], checks[f"{level}_tf32_False"]
+        checks[f"{level}_tf32_equal"] = bool(torch.equal(on.pop("scores"), off.pop("scores")))
+    bad = {k: v for k, v in checks.items() if v is False or isinstance(v, dict) and not (
+        v["scores_rel"] <= MAHA_REL_TOL and v["mean_abs"] <= 1e-6
+        and v["precision_rel"] <= 1e-4)}
+    if bad:
+        fail(f"Mahalanobis vs the float64 host reference, TF32 on and off: {bad}")
+    rec["vs_host_f64"] = checks
+    rec["score_ms_6728"] = cuda_ms(lambda: mahalanobis_distances(patch_q, det.mean, det.precision))
+
+    # the served image scores are evaluate's detector's: the same fit (its
+    # normality is the bank, ≥ 100 rows), the same scores on one batch
+    scorer = batcher._fn
+    _, det = inf.attach_anomaly_scores(outputs, image_rows, scorer="mahalanobis", seed=0)
+    direct, _, _ = scorer(imgs)
+    _, emb = scorer.engine.predict_batch(im.normalize_imagenet(torch.from_numpy(imgs).to(device)))
+    want = det.predict(emb).cpu().numpy()
+    http = np.array([r["score"] for r in results], np.float32)
+    same_fit = (torch.equal(scorer.detector.mean, det.mean) and torch.equal(scorer.detector.precision, det.precision)
+                and meta["threshold"] == det.threshold)
+    http_rel = float(np.max(np.abs(http - direct) / direct))
+    if (int(bank.count) < 100 or not same_fit or not np.array_equal(direct, want)
+            or not http_rel <= 1e-6):
+        fail(f"served Mahalanobis scores vs evaluate's detector: bank rows {int(bank.count)}, "
+             f"same fit {same_fit}, direct max|d| {float(np.abs(direct - want).max())}, "
+             f"HTTP rel {http_rel}")
+    rec["served_scores"], rec["http_vs_direct_rel"] = http.tolist(), http_rel
+    return rec
+
+
+def drive_scorers(device, work: Path) -> dict:
+    """Phase 8: the wide patch path, the coreset into the resident kernel,
+    and the Mahalanobis scorer."""
+    out = {}
+    for name, fn in (("wide", drive_wide_patch_path), ("coreset", drive_coreset_eval),
+                     ("mahalanobis", drive_mahalanobis)):
+        t0 = time.perf_counter()
+        out[name] = fn(device, work)
+        out[name]["phase_s"] = time.perf_counter() - t0
+        print(f"scorers {name}: {json.dumps(out[name])} ({card_line()})", flush=True)
+    return out
+
+
 def main() -> int:
     try:
         import torch
@@ -1632,6 +2113,7 @@ def main() -> int:
         drive_synthesis(device, work)
         train = drive_training(device, work)
         evaluation = drive_evaluation(device, work)
+        scorers = drive_scorers(device, work)
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
@@ -1648,6 +2130,9 @@ def main() -> int:
         "fit_ms": records["fit"]["ms"], "fit_library_ms": records["fit"]["library_ms"],
         "train_path_launches": train["knn_launches"],
         "eval_path_launches": evaluation["launches"]["knn_cosine_scores"],
+        "scorer_path_launches": scorers["coreset"]["launches"]["knn_cosine_scores"],
+        "scorer_path_shape": scorers["coreset"]["knn_at_coreset"],
+        "scorer_path_vs_plain": scorers["coreset"]["vs_plain_knn"],
     }]
     tserve, tfit = tiled_records["serve"], tiled_records["fit"]
     kernels.append({
@@ -1664,6 +2149,9 @@ def main() -> int:
         "fit_ms": tfit["ms"], "fit_device_us": tfit["device_us"], "fit_plain_ms": tfit["plain_ms"],
         "fit_library_ms": tfit["library_ms"], "fit_bound_ms": tfit["bound_ms"],
         "eval_path_launches": evaluation["launches"]["knn_cosine_scores_tiled"],
+        "scorer_path_launches": scorers["wide"]["launches"]["knn_cosine_scores_tiled"],
+        "scorer_path_shape": scorers["wide"]["tiled_at_coreset"],
+        "scorer_path_vs_plain": scorers["wide"]["tiled_vs_plain_knn"],
     })
     sserve = stem_records[BATCH * WINDOWS]
     kernels.append({
@@ -1678,10 +2166,13 @@ def main() -> int:
         "tolerance": "rtol 2^-7, atol 1e-6; < 1e-3 of elements not bit-equal",
         "flipped_share": max(r["flipped_share"] for r in stem_records.values()),
         "eval_path_launches": evaluation["launches"]["stem_pool"],
+        "scorer_path_launches": (scorers["wide"]["launches"]["stem_pool"]
+                                 + scorers["coreset"]["launches"]["stem_pool"]
+                                 + scorers["mahalanobis"]["stem_pool_launches"]),
     })
     for rec in kernels:
         if (rec["launches"] < 1 or rec.get("train_path_launches", 1) < 1
-                or rec["eval_path_launches"] < 1):
+                or rec["eval_path_launches"] < 1 or rec["scorer_path_launches"] < 1):
             fail(f"{rec['name']} was not launched on its path")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card_line(), flush=True)

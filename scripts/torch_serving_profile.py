@@ -129,7 +129,7 @@ def image_mode(device) -> None:
     bank = torch.from_numpy(rng.standard_normal((700, 512)).astype(np.float32))
     meta = {"mode": "image", "model": dataclasses.asdict(ModelConfig()), "k": 3,
             "threshold": 0.5, "batch": chip_smoke.BATCH, "imsize": [chip_smoke.IMSIZE] * 2}
-    scorer = ServedScorer(meta, chip_smoke.reference_state_dict(0), bank, device)
+    scorer = ServedScorer(meta, chip_smoke.reference_state_dict(0), device, bank=bank)
     breakdown(scorer, chip_smoke.synthetic_images(rng, chip_smoke.BATCH), 20, {"mode": "image"})
 
 
@@ -171,7 +171,7 @@ def patch_mode(device) -> None:
     meta = {"mode": "patch", "model": dataclasses.asdict(ModelConfig()), "k": 3,
             "threshold": 0.5, "batch": chip_smoke.BATCH, "imsize": [chip_smoke.IMSIZE] * 2,
             "patch_dim": 32, "stride": 8, "upsample_to": chip_smoke.IMSIZE}
-    scorer = ServedScorer(meta, chip_smoke.reference_state_dict(0), bank, device)
+    scorer = ServedScorer(meta, chip_smoke.reference_state_dict(0), device, bank=bank)
     breakdown(scorer, chip_smoke.synthetic_images(rng, chip_smoke.BATCH), 5,
               {"mode": "patch", "patches": n, "bank_rows": m}, rows=m)
 

@@ -5,9 +5,8 @@ Counterpart of ssad_tpu/cli.py for the commands ported so far (the
 serving subcommands live in serving/cli.py, as in the JAX package).
 Each takes the JAX command's flags with ``--device`` in place of
 ``--platform``.  ``train --data-shards`` is not ported; ``evaluate`` and
-``infer`` take ``--scorer mahalanobis``, ``--coreset`` (slice 7 of the
-port) and ``--data-shards``/``--category-shards`` above 1 (slice 9) and
-refuse them.  Checkpoints are ``<models-dir>/<subject>/best_model.ckpt``
+``infer`` take ``--data-shards``/``--category-shards`` above 1 (slice 9)
+and refuse them.  Checkpoints are ``<models-dir>/<subject>/best_model.ckpt``
 (``train``, ``import-ckpt``).
 """
 
@@ -133,6 +132,12 @@ def cmd_evaluate(args) -> int:
         coreset=args.coreset, knn_k=args.knn_k,
         device_metrics=False if args.host_metrics else None,
     )
+    # (a coreset with the Mahalanobis scorer gets its note from
+    # attach_anomaly_scores, once per process)
+    if args.coreset is not None and args.scorer == "knn" and args.knn_k > 1:
+        print(f"note: --coreset with --knn-k {args.knn_k}: a maximin-spread bank makes the "
+              "2nd/3rd neighbors far by construction, inflating normal scores — consider "
+              "--knn-k 1", file=sys.stderr)
     results = evaluate_categories(args.dataset_dir, args.models_dir, _subjects(args), cfg,
                                   args.outputs_dir, device=args.device)
     for s, r in results.items():
@@ -155,7 +160,7 @@ def cmd_infer(args) -> int:
     from ssad_tpu_torch.evaluation import inference as inf
     from ssad_tpu_torch.ops.patches import grid_side
 
-    # the scorer, coreset and sharding flags are checked by EvalConfig
+    # the scorer and sharding flags are checked by EvalConfig
     EvalConfig(scorer=args.scorer, coreset=args.coreset, data_shards=args.data_shards)
     patch = args.patch_level
     if args.artificial and patch:
@@ -185,7 +190,7 @@ def cmd_infer(args) -> int:
         n_img = outputs.embeddings.shape[0] // ppi
     outputs, detector = inf.attach_anomaly_scores(
         outputs, normality, patch_localization=patch, num_images=n_img, patches_per_image=ppi,
-        k=args.knn_k, seed=args.seed)
+        k=args.knn_k, seed=args.seed, scorer=args.scorer, coreset=args.coreset)
     maps = outputs.anomaly_maps
     if patch:
         maps = inf.upsample(maps[:, 0], args.imsize)
@@ -261,10 +266,10 @@ def build_parser() -> argparse.ArgumentParser:
     t.add_argument("--fine-tune-epochs", type=int, default=optim_cfg.fine_tune_epochs)
     t.add_argument("--fine-tune-lr", type=float, default=optim_cfg.fine_tune_lr)
     t.add_argument("--backbone", default="resnet18",
-                   choices=["resnet18", "resnet34", "resnet50", "wide_resnet50_2"],
-                   help="resnet18 only is ported; the others raise")
+                   choices=["resnet18", "resnet34", "resnet50", "wide_resnet50_2"])
     t.add_argument("--pretrained-backbone", default=None,
-                   help="path to a torchvision resnet18 state_dict (.pth)")
+                   help="path to a torchvision state_dict (.pth) of the --backbone "
+                        "architecture")
     t.add_argument("--min-dataset-length", type=int, default=data_cfg.min_dataset_length,
                    help="duplicate the train file list up to this length per epoch "
                         "(reference datasets.py:410)")
@@ -304,9 +309,11 @@ def build_parser() -> argparse.ArgumentParser:
         sp.add_argument("--knn-k", type=int, default=eval_cfg.knn_k,
                         help="k-NN neighbours for anomaly scoring (reference models.py:354)")
         sp.add_argument("--scorer", default="knn", choices=["knn", "mahalanobis"],
-                        help="mahalanobis is not ported yet (slice 7) and raises")
+                        help="anomaly scorer: the reference's k-NN cosine detector or "
+                             "a Gaussian scored by Mahalanobis distance")
         sp.add_argument("--coreset", type=int, default=None,
-                        help="not ported yet (slice 7): raises")
+                        help="distil the k-NN bank to N rows by k-center-greedy coreset "
+                             "selection after the 70/30 split (default: every row)")
         sp.add_argument("--data-shards", type=int, default=None,
                         help="above 1 not ported yet (slice 9): raises")
         serving_cli.add_device_flag(sp)

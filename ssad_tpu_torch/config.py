@@ -88,6 +88,7 @@ class DataConfig:
 class ModelConfig:
     """PeraNet architecture (reference models.py:21-146)."""
 
+    #: resnet18 | resnet34 | resnet50 | wide_resnet50_2 (models/resnet.py)
     backbone: str = "resnet18"
     #: multi-scale feature taps concatenated with the pooled output
     layer_outputs: Tuple[str, ...] = ("layer2", "layer3")
@@ -106,9 +107,9 @@ class ModelConfig:
     #: 7×7/s2 conv); carried so that a train_config.json round-trips, and
     #: ignored: the port runs the 7×7/s2 conv either way
     stem_s2d: bool = False
-    #: a torchvision resnet18 state dict (.pth) to start the backbone from;
-    #: None starts from the Lecun-normal init (the reference always starts
-    #: from ImageNet weights, models.py:59)
+    #: a torchvision state dict (.pth) of the backbone's architecture to
+    #: start from; None starts from the Lecun-normal init (the reference
+    #: always starts from ImageNet weights, models.py:59)
     pretrained_backbone: Optional[str] = None
 
 
@@ -180,9 +181,9 @@ def _to_tuple(v):
 @dataclasses.dataclass(frozen=True)
 class EvalConfig:
     """Evaluation sweep options (reference evaluator.py:432-444), the JAX
-    package's fields and defaults.  The Mahalanobis scorer and the coreset
-    are slice 7 of the port, data and category sharding slice 9: asking
-    for them raises ``NotImplementedError``."""
+    package's fields and defaults.  An unknown scorer raises
+    ``ValueError``; data and category sharding are slice 9 of the port, and
+    asking for them raises ``NotImplementedError``."""
 
     metrics: Tuple[str, ...] = ("auroc", "f1-score")
     patch_localization: bool = False
@@ -193,11 +194,13 @@ class EvalConfig:
     upsample_size: Optional[int] = None
     aupro_fpr_limit: float = 0.3  # evaluator.py / tools.py:118
     knn_k: int = 3  # reference models.py:354
-    #: 'knn' (models.py:345-370); 'mahalanobis' is not ported yet
+    #: 'knn' (the reference's k-NN cosine detector, models.py:345-370) or
+    #: 'mahalanobis' (a Gaussian fitted to the normality embeddings)
     scorer: str = "knn"
     #: patch mode: training images re-embedded for normality
     n_normality_images: int = 3
-    #: k-center coreset size (not ported yet; None keeps every row)
+    #: distil the k-NN bank to this many rows by k-center-greedy selection
+    #: after the 70/30 split (ops/coreset.py); None keeps every row
     coreset: Optional[int] = None
     imsize: Tuple[int, int] = (256, 256)
     batch_size: int = 32
@@ -209,13 +212,8 @@ class EvalConfig:
     device_metrics: Optional[bool] = None
 
     def __post_init__(self):
-        if self.scorer == "mahalanobis":
-            raise NotImplementedError(
-                "scorer='mahalanobis' is slice 7 of the port (ROADMAP.md); use 'knn'")
-        if self.scorer != "knn":
+        if self.scorer not in ("knn", "mahalanobis"):
             raise ValueError(f"unknown scorer {self.scorer!r}; valid: knn, mahalanobis")
-        if self.coreset is not None:
-            raise NotImplementedError("coreset is slice 7 of the port (ROADMAP.md)")
         for name in ("data_shards", "category_shards"):
             if (getattr(self, name) or 1) > 1:
                 raise NotImplementedError(

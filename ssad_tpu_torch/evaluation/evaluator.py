@@ -3,13 +3,13 @@
 Counterpart of ssad_tpu/evaluation/evaluator.py (reference
 src/evaluator.py:128-698 and tools.py:28-146):
 
-* image level: MVTec test predictions, k-NN scores from the memory bank
-  (or train-set embeddings), image AUROC and optimal F1; the pretext
+* image level: MVTec test predictions, k-NN (or Mahalanobis) scores from
+  the memory bank (or train-set embeddings), image AUROC and optimal F1; the pretext
   classification report on synthetic batches; Grad-CAM maps of every
   test image scored at pixel level, and overlays of the predicted
   defects;
-* patch level: sliding-window embeddings → k-NN scores → blur ⊗
-  upsample maps → pixel AUROC, IoU and AUPRO;
+* patch level: sliding-window embeddings → k-NN (or Mahalanobis) scores
+  → blur ⊗ upsample maps → pixel AUROC, IoU and AUPRO;
 * the sweep: a row per category and their average, textures and objects
   tables, written as csv, LaTeX and Markdown, and the overlaid curves.
 
@@ -23,7 +23,8 @@ t-SNE figure is slice 6b of the port).  As in the JAX package, the patch
 branch scores every test image, and patch normality comes from
 ``n_normality_images`` train images.  The 70/30 fit split is permuted by a
 CPU ``torch.Generator`` seeded with ``cfg.seed`` (the JAX package uses
-``jax.random``), unless ``perm`` is given.
+``jax.random``), unless ``perm`` is given.  ``cfg.coreset`` distils the
+k-NN bank after that split; the Mahalanobis scorer ignores it.
 """
 
 from __future__ import annotations
@@ -44,10 +45,9 @@ from ssad_tpu_torch.evaluation import inference as inf
 from ssad_tpu_torch.evaluation import metrics as M
 from ssad_tpu_torch.evaluation import metrics_device as MD
 from ssad_tpu_torch.evaluation import visualization as vis
-from ssad_tpu_torch.models.detector import AnomalyDetector
+from ssad_tpu_torch.models.detector import make_detector
 from ssad_tpu_torch.models.gradcam import make_gradcam_fn
 from ssad_tpu_torch.ops import image as im
-from ssad_tpu_torch.ops.knn import prepare_bank
 
 
 def _host(t) -> np.ndarray:
@@ -239,7 +239,8 @@ def evaluate_category(engine: inf.InferenceEngine, bank, data: mvtec.PretextData
         normality = inf.normality_embeddings(engine, bank, data.train_images,
                                              batch_size=cfg.batch_size)
         outputs, _ = inf.attach_anomaly_scores(outputs, normality, k=cfg.knn_k, seed=cfg.seed,
-                                               perm=perm)
+                                               perm=perm, scorer=cfg.scorer,
+                                               coreset=cfg.coreset)
         labels, scores = _host(outputs.y_true_binary), _host(outputs.anomaly_maps)
         fpr, tpr, _ = M.roc_curve(labels > 0, scores)
         result.image_auroc = M.auc(fpr, tpr)
@@ -290,17 +291,17 @@ def evaluate_category(engine: inf.InferenceEngine, bank, data: mvtec.PretextData
             patch_dim=cfg.patch_dim, stride=cfg.stride,
             min_bank_rows=10**9,  # patch mode always re-embeds (evaluator.py:297-300)
             max_images=n_normality_images, seed=cfg.seed)
-        detector = AnomalyDetector(k=cfg.knn_k).fit(
-            normality, torch.Generator().manual_seed(cfg.seed), perm=perm)
-        bank_form = prepare_bank(detector.bank)  # split once above 1024 rows
+        # a k-NN coreset is selected inside fit, after the 70/30 split;
+        # Mahalanobis ignores it (the Gaussian's moments are fixed size)
+        det = make_detector(cfg.scorer, k=cfg.knn_k).fit(
+            normality, torch.Generator().manual_seed(cfg.seed), perm=perm, coreset=cfg.coreset)
         bs = max(1, min(8, cfg.batch_size))
         maps_list = []
         for lo in range(0, test_data.images.shape[0], bs):
             raw = torch.from_numpy(np.ascontiguousarray(test_data.images[lo:lo + bs]))
-            x = im.normalize_imagenet(raw.to(engine.device))
-            maps_list.append(engine.score_patch_maps(
-                x, bank_form, dim=cfg.patch_dim, stride=cfg.stride, k=cfg.knn_k,
-                upsample_to=cfg.upsample_size))
+            maps_list.append(engine.score_maps(
+                im.normalize_imagenet(raw.to(engine.device)), det.score, dim=cfg.patch_dim,
+                stride=cfg.stride, upsample_to=cfg.upsample_size))
         (result.pixel_auroc, result.pixel_roc, result.iou, result.aupro,
          result.pro_curve) = _pixel_scores(cfg, torch.cat(maps_list), gts)
         if outputs_dir:

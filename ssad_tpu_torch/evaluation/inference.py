@@ -2,23 +2,26 @@
 path, the dataset predictions and the detector's scores.
 
 Counterpart of ssad_tpu/evaluation/inference.py (InferenceEngine :39-218
-without the Mahalanobis and s2d routes, pad_to_batch :221-232,
-predict_mvtec :235-271, predict_artificial :274-338,
-normality_embeddings :341-378, attach_anomaly_scores :381-435 for the
-k-NN scorer, load_engine :438-446, upsample :449-458).
+without the s2d route, pad_to_batch :221-232, predict_mvtec :235-271,
+predict_artificial :274-338, normality_embeddings :341-378,
+attach_anomaly_scores :381-435, load_engine :438-446, upsample
+:449-458).
 
 Patch mode: the (B, H, W, 3) images are cut into dim×dim windows at a
 stride (row-major order), cast to bf16 whatever the compute dtype (as the
 JAX engine does), and flattened to one (B·P, dim, dim, 3) batch.  32×32
 windows take the fused stem (ops/stem_pool.py: the CUDA kernel on the
 card, its plain version on the CPU) and re-enter the model after the
-stem's maxpool; other sizes run the module forward.  ``score_patch_maps``
-adds k-NN scoring against a bank, the (B, side, side) reshape and the
-blur ⊗ upsample to the image size.
+stem's maxpool; other sizes run the module forward.  ``score_maps``
+adds a fitted detector's scores per window (models/detector.py), the
+(B, side, side) reshape and the blur ⊗ upsample to the image size;
+``score_patch_maps`` and ``score_patch_maps_mahalanobis`` are its JAX
+names, scoring against a bank and a fitted Gaussian.
 """
 
 from __future__ import annotations
 
+import sys
 from pathlib import Path
 from typing import Iterator, Optional, Tuple
 
@@ -29,7 +32,7 @@ from ssad_tpu_torch.config import ModelConfig
 from ssad_tpu_torch.constants import ModelOutputs
 from ssad_tpu_torch.data import mvtec
 from ssad_tpu_torch.data.synthetic import SynthDraws, SynthSpec, draw, synthesize
-from ssad_tpu_torch.models.detector import AnomalyDetector
+from ssad_tpu_torch.models.detector import make_detector, mahalanobis_distances
 from ssad_tpu_torch.models.peranet import PeraNet, build_model
 from ssad_tpu_torch.ops import image as im
 from ssad_tpu_torch.ops import stem_pool
@@ -97,11 +100,34 @@ class InferenceEngine:
         """(B, side, side) k-NN anomaly maps, or (B, upsample_to,
         upsample_to) blurred and upsampled ones; ``bank`` is an (M, D)
         tensor or its ``ops.knn.TiledBank``."""
+        return self.score_maps(x_normalized, lambda emb: knn_cosine_scores(emb, bank, k=k),
+                               dim, stride, upsample_to)
+
+    def score_patch_maps_mahalanobis(
+        self,
+        x_normalized,
+        mean: torch.Tensor,
+        precision: torch.Tensor,
+        dim: int = 32,
+        stride: int = 8,
+        upsample_to: Optional[int] = None,
+    ) -> torch.Tensor:
+        """``score_patch_maps`` with the windows scored by Mahalanobis
+        distance to a fitted Gaussian (models/detector.py)."""
+        return self.score_maps(x_normalized,
+                               lambda emb: mahalanobis_distances(emb, mean, precision),
+                               dim, stride, upsample_to)
+
+    def score_maps(self, x_normalized, score, dim: int = 32, stride: int = 8,
+                   upsample_to: Optional[int] = None) -> torch.Tensor:
+        """Windows → stem → PeraNet → ``score`` per window → (B, side,
+        side) maps, blurred and upsampled when ``upsample_to`` is given.
+        ``score`` maps (N, D) embeddings to (N,) scores: a fitted
+        detector's ``score``."""
         with torch.inference_mode():
             out, b, n = self.embed_grid(x_normalized, dim, stride)
-            scores = knn_cosine_scores(out["latent_space"], bank, k=k)
             side = int(round(n ** 0.5))
-            maps = scores.reshape(b, side, side)
+            maps = score(out["latent_space"]).reshape(b, side, side)
             if upsample_to is not None:
                 maps = im.upsample_anomaly_maps(maps, upsample_to)
         return maps
@@ -238,17 +264,35 @@ def normality_embeddings(
     return torch.cat(embs, dim=0)
 
 
+#: attach_anomaly_scores has said that a coreset does nothing with the
+#: Mahalanobis scorer (the JAX package says it once per process too)
+_coreset_noted = False
+
+
 def attach_anomaly_scores(outputs: ModelOutputs, normality: torch.Tensor,
                           patch_localization: bool = False, num_images: Optional[int] = None,
                           patches_per_image: Optional[int] = None, k: int = 3, seed: int = 0,
-                          perm: Optional[torch.Tensor] = None):
-    """Fit the k-NN detector on ``normality`` (70/30, the split permuted
+                          perm: Optional[torch.Tensor] = None, scorer: str = "knn",
+                          coreset: Optional[int] = None):
+    """Fit the selected detector on ``normality`` (70/30, the split permuted
     by a CPU ``torch.Generator`` seeded with ``seed``, or by ``perm``) and
     score ``outputs.embeddings`` into ``outputs.anomaly_maps``
-    (tools.py:351-389) → (outputs, detector)."""
-    detector = AnomalyDetector(k=k, patch_level=patch_localization, batch=num_images,
-                               num_patches=patches_per_image)
-    detector.fit(normality, torch.Generator().manual_seed(seed), perm=perm)
+    (tools.py:351-389) → (outputs, detector).  ``scorer``: 'knn' (the
+    reference detector) or 'mahalanobis'.  ``coreset`` distils the k-NN
+    bank inside ``AnomalyDetector.fit`` (after the split); Mahalanobis
+    ignores it, with a note once per process: the Gaussian's moments are
+    fixed size whatever the row count, and a maximin subset would bias
+    them toward boundary rows."""
+    global _coreset_noted
+    shape = dict(patch_level=patch_localization, batch=num_images,
+                 num_patches=patches_per_image)
+    detector = make_detector(scorer, k=k, **shape)
+    if scorer == "mahalanobis" and coreset is not None and not _coreset_noted:
+        _coreset_noted = True
+        print("note: coreset has no effect with scorer=mahalanobis (the Gaussian's "
+              "moments are fixed size; a maximin subset would bias them) — ignored",
+              file=sys.stderr)
+    detector.fit(normality, torch.Generator().manual_seed(seed), perm=perm, coreset=coreset)
     outputs.anomaly_maps = detector.predict(outputs.embeddings)
     return outputs, detector
 

@@ -1,11 +1,14 @@
-"""PeraNet: ResNet-18 backbone + concat head + latent MLP + classifier.
+"""PeraNet: ResNet backbone + concat head + latent MLP + classifier.
 
 Counterpart of ssad_tpu/models/peranet.py:37-132, with the reference's
 state-dict layout (models.py:58-99), so a reference Lightning
 ``best_model.ckpt`` loads with ``strict=True``:
 
-  feature_extractor.*          torchvision resnet18 (no fc)
-  concatenator.{0,1}           Linear(896 → 512, no bias) + BN
+  feature_extractor.*          torchvision resnet18/34/50, wide_resnet50_2 (no fc)
+  concatenator.{0,1}           Linear(taps + pooled → 512, no bias) + BN:
+                               896 → 512 for ResNet-18/34 (128 + 256 + 512),
+                               3,584 → 512 for the bottleneck family
+                               (512 + 1024 + 2048)
   latent_space.{i}.{0,1}       3 × [Linear(512, no bias) + BN + ReLU]
   latent_space.{3,4}           Linear(512, bias) + BN   → embedding
   classifier                   Linear(512 → num_classes)
@@ -35,7 +38,7 @@ from torch import nn
 
 from ssad_tpu_torch.config import ModelConfig
 from ssad_tpu_torch.models.resnet import (
-    STAGE_CHANNELS, BatchNorm1d, FlaxBatchNorm, lecun_normal_, make_backbone,
+    BatchNorm1d, FlaxBatchNorm, lecun_normal_, make_backbone,
 )
 from ssad_tpu_torch.ops.image import resize_nearest
 
@@ -61,7 +64,8 @@ class PeraNet(nn.Module):
         self.layer_outputs = tuple(sorted(layer_outputs))
         self.compute_dtype = compute_dtype
         self.feature_extractor = make_backbone(backbone_arch, dtype=compute_dtype)
-        in_dim = sum(STAGE_CHANNELS[t] for t in self.layer_outputs) + STAGE_CHANNELS["layer4"]
+        widths = self.feature_extractor.stage_channels
+        in_dim = sum(widths[t] for t in self.layer_outputs) + widths["layer4"]
         self.concatenator = nn.Sequential(
             nn.Linear(in_dim, latent_dim, bias=False), BatchNorm1d(latent_dim)
         )
@@ -79,7 +83,7 @@ class PeraNet(nn.Module):
         self.classifier = nn.Linear(latent_dim, num_classes)
 
     def backbone_features(self, x: torch.Tensor):
-        """(B, H, W, 3) → (pooled (B, 512), {'layer1'..'layer4': NCHW})."""
+        """(B, H, W, 3) → (pooled (B, C4), {'layer1'..'layer4': NCHW})."""
         if x.shape[1] == 32 and x.shape[2] == 32:
             return self.feature_extractor(x.permute(0, 3, 1, 2), stem_fold_2x=True)
         if x.shape[1] < 64 or x.shape[2] < 64:

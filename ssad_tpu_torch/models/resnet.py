@@ -1,8 +1,12 @@
-"""ResNet-18 backbone returning the pooled features and the stage taps.
+"""ResNet backbones returning the pooled features and the stage taps.
 
-Counterpart of ssad_tpu/models/resnet.py:25-133, :178-258: the 7×7/s2
-stem, its folded 4×4/s1 form for 32×32 inputs (``fold_2x``), and
-``forward_stages``, the re-entry point after the stem's maxpool.  The JAX
+Counterpart of ssad_tpu/models/resnet.py: the 7×7/s2 stem, its folded
+4×4/s1 form for 32×32 inputs (``fold_2x``), ``forward_stages``, the
+re-entry point after the stem's maxpool, basic blocks (ResNet-18/34) and
+bottleneck blocks (ResNet-50, Wide-ResNet-50-2: 1×1 reduce, 3×3 with the
+stride, 1×1 expand ×4; the inner width scaled by ``width_factor``).  Every
+backbone has the same 64-channel stem, so 32×32 windows take the fused
+stem kernel whatever the backbone.  The JAX
 package's space-to-depth stem (``ModelConfig.stem_s2d``) computes the same
 function as the 7×7/s2 conv and was a TPU layout trick; the port runs the
 7×7/s2 conv whatever that field says.  Module and parameter names are torchvision's,
@@ -36,8 +40,8 @@ from torch import nn
 
 from ssad_tpu_torch.ops.stem_pool import fold_stem_kernel
 
-#: output channels of each stage
-STAGE_CHANNELS = {"layer1": 64, "layer2": 128, "layer3": 256, "layer4": 512}
+#: base width of each stage (torchvision's ``planes``)
+STAGE_FILTERS = (64, 128, 256, 512)
 
 
 class Conv2d(nn.Conv2d):
@@ -112,25 +116,64 @@ class BasicBlock(nn.Module):
         return F.relu(y + residual)
 
 
-class ResNet(nn.Module):
-    """ResNet v1 with basic blocks; forward returns (pooled (B, C4) f32,
-    {'layer1'..'layer4': NCHW maps in the compute dtype})."""
+class BottleneckBlock(nn.Module):
+    """1×1 reduce → 3×3 (stride) → 1×1 expand (×4) + identity/projection
+    shortcut (ResNet v1.5 bottleneck, ssad_tpu/models/resnet.py:136-175);
+    ``width`` is the inner width (2·filters for wide_resnet50_2)."""
 
-    def __init__(self, stage_sizes=(2, 2, 2, 2), dtype: torch.dtype = torch.float32):
+    expansion = 4
+
+    def __init__(self, cin: int, filters: int, stride: int, dtype: torch.dtype, width: int):
         super().__init__()
+        cout = filters * self.expansion
+        self.conv1 = Conv2d(cin, width, 1, 1, 0, bias=False)
+        self.bn1 = BatchNorm2d(width, dtype)
+        self.conv2 = Conv2d(width, width, 3, stride, 1, bias=False)
+        self.bn2 = BatchNorm2d(width, dtype)
+        self.conv3 = Conv2d(width, cout, 1, 1, 0, bias=False)
+        self.bn3 = BatchNorm2d(cout, dtype)
+        self.downsample = None
+        if stride != 1 or cin != cout:
+            self.downsample = nn.Sequential(
+                Conv2d(cin, cout, 1, stride, 0, bias=False), BatchNorm2d(cout, dtype)
+            )
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        residual = x if self.downsample is None else self.downsample(x)
+        y = F.relu(self.bn1(self.conv1(x)))
+        y = F.relu(self.bn2(self.conv2(y)))
+        y = self.bn3(self.conv3(y))
+        return F.relu(y + residual)
+
+
+class ResNet(nn.Module):
+    """ResNet v1 with ``block`` 'basic' or 'bottleneck'; forward returns
+    (pooled (B, C4) f32, {'layer1'..'layer4': NCHW maps in the compute
+    dtype}).  ``stage_channels`` holds each stage's output width."""
+
+    def __init__(self, stage_sizes=(2, 2, 2, 2), dtype: torch.dtype = torch.float32,
+                 block: str = "basic", width_factor: int = 1):
+        super().__init__()
+        if block not in ("basic", "bottleneck"):
+            raise ValueError(f"block must be 'basic' or 'bottleneck', got {block!r}")
         self.compute_dtype = dtype
         self.conv1 = Conv2d(3, 64, 7, 2, 3, bias=False)
         self.bn1 = BatchNorm2d(64, dtype)
+        self.stage_channels: Dict[str, int] = {}
         cin = 64
-        for stage, (blocks, cout) in enumerate(
-            zip(stage_sizes, STAGE_CHANNELS.values()), start=1
-        ):
+        for stage, (blocks, filters) in enumerate(zip(stage_sizes, STAGE_FILTERS), start=1):
             layer = []
-            for block in range(blocks):
-                stride = 2 if stage > 1 and block == 0 else 1
-                layer.append(BasicBlock(cin, cout, stride, dtype))
-                cin = cout
+            for b in range(blocks):
+                stride = 2 if stage > 1 and b == 0 else 1
+                if block == "basic":
+                    layer.append(BasicBlock(cin, filters, stride, dtype))
+                    cin = filters
+                else:
+                    layer.append(BottleneckBlock(cin, filters, stride, dtype,
+                                                 width=filters * width_factor))
+                    cin = filters * BottleneckBlock.expansion
             setattr(self, f"layer{stage}", nn.Sequential(*layer))
+            self.stage_channels[f"layer{stage}"] = cin
 
     def folded_stem_weight(self) -> torch.Tensor:
         """The 4×4/s1 kernel equal to nearest-×2 upsampling followed by the
@@ -183,10 +226,31 @@ def ResNet18(dtype: torch.dtype = torch.float32) -> ResNet:
     return ResNet((2, 2, 2, 2), dtype=dtype)
 
 
+def ResNet34(dtype: torch.dtype = torch.float32) -> ResNet:
+    """torchvision resnet34: basic blocks at (3, 4, 6, 3), ResNet-18's
+    stage widths."""
+    return ResNet((3, 4, 6, 3), dtype=dtype)
+
+
+def ResNet50(dtype: torch.dtype = torch.float32) -> ResNet:
+    """torchvision resnet50: bottleneck blocks at (3, 4, 6, 3), stage
+    widths 256/512/1024/2048."""
+    return ResNet((3, 4, 6, 3), dtype=dtype, block="bottleneck")
+
+
+def WideResNet50_2(dtype: torch.dtype = torch.float32) -> ResNet:
+    """torchvision wide_resnet50_2: ResNet-50 with the inner width of every
+    bottleneck doubled (the PatchCore-style feature extractor)."""
+    return ResNet((3, 4, 6, 3), dtype=dtype, block="bottleneck", width_factor=2)
+
+
+BACKBONES = {"resnet18": ResNet18, "resnet34": ResNet34, "resnet50": ResNet50,
+             "wide_resnet50_2": WideResNet50_2, "wide_resnet50": WideResNet50_2}
+
+
 def make_backbone(arch: str, dtype: torch.dtype = torch.float32) -> ResNet:
-    if arch == "resnet18":
-        return ResNet18(dtype)
-    raise ValueError(
-        f"backbone {arch!r} is not ported yet (resnet18 only); the other "
-        "backbones are queued in ROADMAP.md"
-    )
+    if arch not in BACKBONES:
+        raise ValueError(
+            f"unknown backbone '{arch}' (resnet18 | resnet34 | resnet50 | wide_resnet50_2)"
+        )
+    return BACKBONES[arch](dtype)

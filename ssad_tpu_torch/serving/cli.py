@@ -3,10 +3,11 @@
 Counterpart of ssad_tpu/serving/cli.py (cmd_export :39, cmd_serve :208,
 cmd_score :334, the flags at :658-741) with ``--device`` added: the
 commands run on the CUDA device unless ``--device cpu`` is given, and
-fail with a clear message when there is no card.  Image and patch (k-NN)
-artifacts are ported; the JAX CLI's quantized and Mahalanobis exports,
-``--coreset``, ``serve-bench``, ``evaluate-artifact``, remote
-``score --url``, replicas and the native front end wait for later slices.
+fail with a clear message when there is no card.  Image and patch
+artifacts with the k-NN (``--coreset`` too) or Mahalanobis scorer are
+ported; the JAX CLI's quantized exports, ``--validate``, ``serve-bench``,
+``evaluate-artifact``, remote ``score --url``, replicas and the native
+front end wait for later slices.
 """
 
 from __future__ import annotations
@@ -23,11 +24,21 @@ def add_device_flag(p) -> None:
 
 def cmd_export(args) -> int:
     """<models-dir>/<subject>/best_model.ckpt → a serving artifact with
-    the fitted bank and calibrated threshold (serving/export.py)."""
+    the fitted scorer and calibrated threshold (serving/export.py)."""
+    import sys
+
     from ssad_tpu_torch.serving.export import export_checkpoint
     from ssad_tpu_torch.utils.device import resolve_device
 
     device = resolve_device(args.device)
+    if args.coreset is not None and args.scorer == "mahalanobis":
+        print("note: --coreset has no effect with --scorer mahalanobis (the Gaussian's "
+              "mean/precision are fixed size regardless of row count; a maximin subset "
+              "would bias the moments) — flag ignored", file=sys.stderr)
+    elif args.coreset is not None and (args.knn_k is None or args.knn_k > 1):
+        print("note: --coreset with k>1 scoring: a maximin-spread bank makes the 2nd/3rd "
+              "neighbors far by construction, inflating normal scores — consider --knn-k 1",
+              file=sys.stderr)
     ckpt = Path(args.models_dir) / args.subject / "best_model.ckpt"
     out = args.out or str(
         Path(args.models_dir) / args.subject / f"{args.subject}_{args.mode}.ssadpt"
@@ -38,7 +49,7 @@ def cmd_export(args) -> int:
         k=args.knn_k, seed=args.seed, subject=args.subject, device=device,
         allow_pickle=args.allow_pickle, dataset_dir=args.dataset_dir,
         n_normality_images=args.n_normality_images, patch_dim=args.patch_dim,
-        stride=args.stride,
+        stride=args.stride, scorer=args.scorer, coreset=args.coreset,
     )
     print(json.dumps({
         "artifact": path,
@@ -231,8 +242,14 @@ def register(sub) -> None:
                          "DataConfig().imsize (256)")
     ex.add_argument("--knn-k", type=int, default=None,
                     help="default: EvalConfig().knn_k")
+    ex.add_argument("--scorer", default="knn", choices=["knn", "mahalanobis"],
+                    help="anomaly scorer in the artifact: the k-NN bank (reference "
+                         "parity) or a Gaussian scored by Mahalanobis distance")
+    ex.add_argument("--coreset", type=int, default=None,
+                    help="distil the k-NN bank to N rows by k-center-greedy coreset "
+                         "selection after the calibration split (default: every row)")
     ex.add_argument("--seed", type=int, default=0,
-                    help="seed of the 70/30 calibration split")
+                    help="seed of the 70/30 calibration split and the coreset's first row")
     ex.add_argument("--allow-pickle", action="store_true",
                     help="permit full unpickling of a checkpoint you trust")
     add_device_flag(ex)

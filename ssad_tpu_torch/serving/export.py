@@ -1,8 +1,10 @@
-"""Serving artifacts: one file with the weights, the fitted bank and the
-calibrated threshold, and the scorer that serves it.
+"""Serving artifacts: one file with the weights, the fitted scorer (a k-NN
+bank, or a Gaussian's mean and precision) and the calibrated threshold,
+and the scorer that serves it.
 
-Counterpart of the k-NN branches of ssad_tpu/serving/export.py (image and
-patch mode).  The JAX artifact carries a serialized StableHLO program;
+Counterpart of ssad_tpu/serving/export.py for the k-NN and Mahalanobis
+scorers in image and patch mode (not the bf16 and int8 weight artifacts).
+The JAX artifact carries a serialized StableHLO program;
 PyTorch runs eagerly, so this one carries the model's state dict instead
 and ``ServedScorer`` rebuilds PeraNet on the device.  The layout is
 
@@ -10,23 +12,27 @@ and ``ServedScorer`` rebuilds PeraNet on the device.  The layout is
 
 with the JAX header's fields (mode, batch, imsize, k, threshold, knn_impl,
 weights_dtype, scorer, num_classes, subject, calibration, …), the port's
-own ``format`` string, ``platform: "cuda"`` and the model configuration,
-and a payload ``{"state_dict": …, "bank": (M, D) float32}``.
+own ``format`` string, ``platform: "cuda"`` and the model configuration
+(its ``backbone`` among it, read from the checkpoint's TrainConfig), and a
+payload ``{"state_dict": …, "bank": (M, D) float32}`` — or, when the
+header's ``scorer`` is ``"mahalanobis"`` (and its ``knn_impl`` null),
+``{"state_dict": …, "mean": (D,), "precision": (D, D)}`` float32.
 
 The scorer maps RAW [0,1] float images (B, H, W, 3), after ImageNet
 normalization, to
 
 * image mode: ``(scores (B,), labels (B,), logits (B, C))`` — the PeraNet
-  forward in eval mode, k-NN cosine scoring against the f32 bank, the
-  threshold;
+  forward in eval mode, k-NN cosine scoring against the f32 bank (or
+  ``models.detector.mahalanobis_distances``), the threshold;
 * patch mode: ``(maps (B, H, W),)`` — the patch path of
   evaluation/inference.py (windows → fused stem → PeraNet → k-NN against
-  the patch bank → blur ⊗ upsample to the image size).
+  the patch bank, or Mahalanobis → blur ⊗ upsample to the image size).
 
 On the card every kernel of the path is the CUDA one; on the CPU it is
 the plain version.  The header's ``knn_impl`` names the k-NN kernel that
 serves the bank: ``cuda`` (≤ 1024 rows, csrc/knn.cu) or ``cuda_tiled``
-(csrc/knn_tiled.cu).
+(csrc/knn_tiled.cu); it is null for a Mahalanobis artifact, which runs
+no k-NN.
 """
 
 from __future__ import annotations
@@ -44,24 +50,24 @@ import torch
 
 from ssad_tpu_torch.config import DataConfig, EvalConfig, ModelConfig
 from ssad_tpu_torch.evaluation.inference import InferenceEngine
+from ssad_tpu_torch.models.detector import make_detector
 from ssad_tpu_torch.models.peranet import build_model
 from ssad_tpu_torch.ops import image as im
-from ssad_tpu_torch.ops.knn import PALLAS_MAX_BANK_ROWS, knn_cosine_scores, prepare_bank
+from ssad_tpu_torch.ops.knn import PALLAS_MAX_BANK_ROWS
 from ssad_tpu_torch.utils.device import resolve_device
 
 _MAGIC = b"SSADPT01"
 FORMAT = "ssad_tpu_torch.serving/1"
 
 
-def save_artifact(path: str | Path, meta: dict, state_dict: dict, bank: torch.Tensor) -> str:
+def save_artifact(path: str | Path, meta: dict, state_dict: dict, **arrays: torch.Tensor) -> str:
+    """Write an artifact; ``arrays`` are the scorer's: ``bank=`` (k-NN) or
+    ``mean=`` and ``precision=`` (Mahalanobis), stored as f32."""
     buf = io.BytesIO()
-    torch.save(
-        {
-            "state_dict": {k: v.detach().cpu() for k, v in state_dict.items()},
-            "bank": bank.detach().to("cpu", torch.float32).contiguous(),
-        },
-        buf,
-    )
+    payload = {"state_dict": {k: v.detach().cpu() for k, v in state_dict.items()}}
+    payload.update({k: v.detach().to("cpu", torch.float32).contiguous()
+                    for k, v in arrays.items()})
+    torch.save(payload, buf)
     header = json.dumps(meta).encode("utf-8")
     path = Path(path)
     path.parent.mkdir(parents=True, exist_ok=True)
@@ -103,6 +109,8 @@ def export_checkpoint(
     n_normality_images: Optional[int] = None,
     patch_dim: int = 32,
     stride: int = 8,
+    scorer: str = "knn",
+    coreset: Optional[int] = None,
 ) -> str:
     """Reference-layout ``best_model.ckpt`` → serving artifact.
 
@@ -122,14 +130,19 @@ def export_checkpoint(
       forward: the bank holds whole-image embeddings, the wrong
       distribution for patch scoring.
 
-    On the card the fit's scoring runs the k-NN kernel for the bank's size.
+    ``scorer``: 'knn' (the bank; ``coreset`` distils it inside the fit,
+    after the split) or 'mahalanobis' (a Gaussian; ``coreset`` is ignored:
+    its moments are fixed size, and a maximin subset would bias them).
+    On the card the k-NN fit's scoring runs the k-NN kernel for the bank's
+    size.
     """
-    from ssad_tpu_torch.models.detector import AnomalyDetector
     from ssad_tpu_torch.train.memory_bank import newest_first
     from ssad_tpu_torch.utils.ref_checkpoint import load_checkpoint
 
     if mode not in ("image", "patch"):
         raise ValueError(f"unknown mode {mode!r}; valid: image, patch")
+    k = EvalConfig().knn_k if k is None else k
+    det = make_detector(scorer, k=k)
     dev = resolve_device(device)
     state_dict, bank, cfg, train_cfg = load_checkpoint(checkpoint_path, allow_pickle)
     data_cfg = train_cfg.data if train_cfg is not None else DataConfig()
@@ -149,11 +162,11 @@ def export_checkpoint(
             if bank is None or int(bank.count) == 0:
                 raise ValueError(f"{checkpoint_path} has no memory bank; pass `normality`")
             normality = newest_first(bank)
-    k = EvalConfig().knn_k if k is None else k
-    det = AnomalyDetector(k=k).fit(
-        torch.as_tensor(normality, dtype=torch.float32).to(dev),
-        generator=torch.Generator().manual_seed(seed),
-    )
+    normality = torch.as_tensor(normality, dtype=torch.float32).to(dev)
+    det.fit(normality, torch.Generator().manual_seed(seed), coreset=coreset)
+    arrays = det.arrays()
+    knn_impl = (None if "bank" not in arrays else
+                "cuda_tiled" if det.bank.shape[0] > PALLAS_MAX_BANK_ROWS else "cuda")
     upsample_to = imsize[0] if mode == "patch" else None
     meta = {
         "format": FORMAT,
@@ -166,18 +179,18 @@ def export_checkpoint(
         "stride": int(stride),
         "upsample_to": upsample_to,
         "platform": "cuda",
-        "knn_impl": "cuda_tiled" if det.bank.shape[0] > PALLAS_MAX_BANK_ROWS else "cuda",
+        "knn_impl": knn_impl,
         "weights_dtype": "float32",
-        "scorer": "knn",
+        "scorer": scorer,
         "num_classes": cfg.num_classes,
         "model": dataclasses.asdict(cfg),
         "checkpoint": str(checkpoint_path),
-        "calibration": _calibration_summary(det, mode, engine, data, patch_dim, stride,
-                                            upsample_to),
+        "calibration": _calibration_summary(det, scorer, mode, engine, data, patch_dim,
+                                            stride, upsample_to),
     }
     if subject:
         meta["subject"] = subject
-    return save_artifact(out_path, meta, state_dict, det.bank)
+    return save_artifact(out_path, meta, state_dict, **arrays)
 
 
 def _patch_normality(engine, dataset_dir, subject, imsize, n_images, patch_dim, stride, seed):
@@ -200,7 +213,7 @@ def _patch_normality(engine, dataset_dir, subject, imsize, n_images, patch_dim, 
     return emb, data
 
 
-def _calibration_summary(det, mode, engine, data, patch_dim, stride, upsample_to,
+def _calibration_summary(det, scorer, mode, engine, data, patch_dim, stride, upsample_to,
                          max_images: int = 32):
     """The drift baseline of the header (serving/drift.py): quantiles of
     the quantity the server observes per request.
@@ -209,20 +222,19 @@ def _calibration_summary(det, mode, engine, data, patch_dim, stride, upsample_to
     * patch mode — anomaly-map maxima of at most ``max_images`` held-out
       training images (the train split when there is no val split),
       scored in chunks of 4 (the last padded by repeating its final
-      image) through the patch path with the fitted bank; None when only
-      an explicit normality array was given.
+      image) through the patch path with the fitted detector; None when
+      only an explicit normality array was given.
     """
     from ssad_tpu_torch.serving.drift import quantile_summary
 
     if mode == "image":
         summary = quantile_summary(det.calibration_scores.cpu().numpy())
-        summary["source"] = "fit-val-knn"
+        summary["source"] = f"fit-val-{scorer}"
         return summary
     if data is None:
         return None
     images = data.val_images if len(data.val_images) else data.train_images
     images = images[:max_images]
-    bank = prepare_bank(det.bank)  # split once for all the chunks
     maxima = []
     for lo in range(0, images.shape[0], 4):
         chunk = images[lo : lo + 4]
@@ -230,13 +242,11 @@ def _calibration_summary(det, mode, engine, data, patch_dim, stride, upsample_to
         if n_real < 4:
             chunk = np.concatenate([chunk, np.repeat(chunk[-1:], 4 - n_real, axis=0)])
         x = torch.from_numpy(np.ascontiguousarray(chunk, np.float32)).to(engine.device)
-        maps = engine.score_patch_maps(
-            im.normalize_imagenet(x), bank, dim=patch_dim, stride=stride, k=det.k,
-            upsample_to=upsample_to,
-        )
+        maps = engine.score_maps(im.normalize_imagenet(x), det.score, dim=patch_dim,
+                                 stride=stride, upsample_to=upsample_to)
         maxima.extend(maps.amax(dim=(1, 2))[:n_real].cpu().tolist())
     summary = quantile_summary(maxima)
-    summary["source"] = "val-image-map-max-knn"
+    summary["source"] = f"val-image-map-max-{scorer}"
     return summary
 
 
@@ -259,28 +269,32 @@ class ServedScorer:
     Sub-``batch`` inputs are zero-padded to the artifact's batch and the
     padding rows dropped from the outputs; larger inputs are chunked.
     On a CUDA device every kernel of the path is the CUDA one; on the CPU
-    it is the plain version.  ``bank`` stays the raw f32 bank;
-    ``knn_bank`` is what the k-NN scoring takes (``prepare_bank``: on the
-    card a bank above PALLAS_MAX_BANK_ROWS rows is normalised and split
-    here, once, instead of on every call).
+    it is the plain version.  ``detector`` is the fitted detector the
+    header's ``scorer`` names ('knn' when an older header has none), made
+    from the payload's arrays on the device: its ``score`` is the one
+    scoring call of both modes (k-NN: on the card a bank above
+    PALLAS_MAX_BANK_ROWS rows is normalised and split once, on the first
+    call, which the warmup makes).
     """
 
-    def __init__(self, meta: dict, state_dict: dict, bank: torch.Tensor, device=None):
+    def __init__(self, meta: dict, state_dict: dict, device=None, **arrays):
         self.meta = meta
         self.device = resolve_device(device)
         model = build_model(ModelConfig(**_tuples(meta["model"])))
         model.load_state_dict(state_dict, strict=True)
         self.engine = InferenceEngine(model, self.device)
-        self.bank = bank.to(self.device, torch.float32).contiguous()
-        self.knn_bank = prepare_bank(self.bank)
+        self.scorer = meta.get("scorer", "knn")
         self.k = int(meta["k"])
+        self.detector = make_detector(self.scorer, k=self.k, **{
+            name: a.to(self.device, torch.float32).contiguous() for name, a in arrays.items()})
         self.threshold = float(meta["threshold"])
 
     @classmethod
     def from_file(cls, path: str | Path, device=None) -> "ServedScorer":
         dev = resolve_device(device)
         meta, payload = read_artifact(path)
-        return cls(meta, payload["state_dict"], payload["bank"], dev)
+        state_dict = payload.pop("state_dict")
+        return cls(meta, state_dict, dev, **payload)
 
     @property
     def batch(self) -> int:
@@ -290,15 +304,14 @@ class ServedScorer:
         """(B, H, W, 3) raw images on the device → device tensors:
         (scores, labels, logits) in image mode, (maps,) in patch mode."""
         meta = self.meta
+        xn = im.normalize_imagenet(x)
         if meta["mode"] == "patch":
-            maps = self.engine.score_patch_maps(
-                im.normalize_imagenet(x), self.knn_bank, dim=int(meta["patch_dim"]),
-                stride=int(meta["stride"]), k=self.k, upsample_to=meta["upsample_to"],
-            )
-            return (maps,)
+            geometry = dict(dim=int(meta["patch_dim"]), stride=int(meta["stride"]),
+                            upsample_to=meta["upsample_to"])
+            return (self.engine.score_maps(xn, self.detector.score, **geometry),)
         with torch.inference_mode():
-            logits, emb = self.engine.predict_batch(im.normalize_imagenet(x))
-            scores = knn_cosine_scores(emb, self.knn_bank, k=self.k)
+            logits, emb = self.engine.predict_batch(xn)
+            scores = self.detector.score(emb)
             labels = (scores > self.threshold).to(torch.int32)
         return scores, labels, logits
 

@@ -64,6 +64,13 @@ def jax_perm(seed: int, m: int) -> torch.Tensor:
     return torch.from_numpy(np.array(jax.random.permutation(jax.random.key(seed), m)))
 
 
+def jax_coreset_first(seed: int, n_train: int) -> int:
+    """The first center the JAX detector's coreset draws from its train
+    split (``AnomalyDetector.fit`` → ``kcenter_greedy``)."""
+    key = jax.random.fold_in(jax.random.key(seed), 1)
+    return int(jax.random.randint(key, (), 0, n_train))
+
+
 def jax_artificial_batches(spec, n_images, n_cut, num_samples, batch_size, seed):
     """The JAX ``predict_artificial``'s image indices and draws per batch,
     in the port's form (``inference.artificial_batches``'s signature); the
@@ -84,18 +91,84 @@ def jax_artificial_batches(spec, n_images, n_cut, num_samples, batch_size, seed)
 
 def with_jax_draws(monkeypatch):
     """Make the port's evaluation draw as the JAX package does: the fit
-    permutation and the artificial batches."""
-    from ssad_tpu_torch.models.detector import AnomalyDetector
+    permutation (both detectors), the coreset's first center and the
+    artificial batches."""
+    from ssad_tpu_torch.models import detector
 
-    fit = AnomalyDetector.fit
+    fit, maha_fit = detector.AnomalyDetector.fit, detector.MahalanobisDetector.fit
 
-    def fit_with_jax_perm(self, embeddings, generator=None, perm=None):
+    def fit_with_jax_perm(self, embeddings, generator=None, perm=None, coreset=None):
         if perm is None:
             perm = jax_perm(int(generator.initial_seed()), embeddings.shape[0])
-        return fit(self, embeddings, generator, perm)
+        return fit(self, embeddings, generator, perm, coreset)
 
-    monkeypatch.setattr(AnomalyDetector, "fit", fit_with_jax_perm)
+    def maha_fit_with_jax_perm(self, embeddings, generator=None, perm=None, coreset=None):
+        if perm is None:
+            perm = jax_perm(int(generator.initial_seed()), embeddings.shape[0])
+        return maha_fit(self, embeddings, generator, perm, coreset)
+
+    monkeypatch.setattr(detector.AnomalyDetector, "fit", fit_with_jax_perm)
+    monkeypatch.setattr(detector.MahalanobisDetector, "fit", maha_fit_with_jax_perm)
+    with_jax_coreset_first(monkeypatch)
     monkeypatch.setattr(inf, "artificial_batches", jax_artificial_batches)
+
+
+def with_jax_coreset_first(monkeypatch, first=None):
+    """Make ``AnomalyDetector.fit``'s coreset start from JAX's first
+    center: ``first``, or the one JAX draws from the fit's seed and the
+    train split's row count (``jax_coreset_first``)."""
+    from ssad_tpu_torch.models import detector
+
+    select = detector.coreset_select
+
+    def select_from_jax_first(embeddings, k, generator=None):
+        start = first
+        if start is None:
+            start = jax_coreset_first(int(generator.initial_seed()), embeddings.shape[0])
+        return select(embeddings, k, generator, start)
+
+    monkeypatch.setattr(detector, "coreset_select", select_from_jax_first)
+
+
+def infer_scorer_against_jax(fake_mvtec, models, tmp_path, capsys, monkeypatch, flags,
+                             patch: bool, rtol: float, atol: float) -> None:
+    """``cli infer [--patch-level] <flags>`` of the port (``--device cpu``,
+    the JAX package's draws) against the JAX command, each from its own
+    checkpoint of ``models`` (``write_checkpoints``): the same JSON line
+    but for the threshold (``rtol``/``atol``) and the path, and
+    ``inference.npz`` with the same keys, shapes and labels and the scores
+    or maps within ``rtol``/``atol``."""
+    import json
+
+    from ssad_tpu import cli as jcli
+    from ssad_tpu_torch import cli
+
+    port_models, jax_models = models
+
+    def common(root, out):
+        return ["--dataset-dir", str(fake_mvtec), "--models-dir", str(root), "--outputs-dir",
+                str(out), "--imsize", str(IMSIZE), "--batch-size", "8"]
+
+    args = ["infer", "--subject", "bottle"] + (["--patch-level"] if patch else []) + flags
+    assert jcli.main(args + common(jax_models, tmp_path / "jax")) == 0
+    want = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    with_jax_draws(monkeypatch)
+    assert cli.main(args + common(port_models, tmp_path / "port") + ["--device", "cpu"]) == 0
+    (line,) = capsys.readouterr().out.strip().splitlines()
+    got = json.loads(line)
+    threshold = want.pop("threshold")
+    assert abs(got.pop("threshold") - threshold) <= atol + rtol * abs(threshold)
+    assert got.pop("outputs").endswith("bottle/inference.npz")
+    want.pop("outputs")
+    assert got == want == {"subject": "bottle", "mode": "patch" if patch else "image",
+                           "n": 4 * 25 if patch else 4}
+    with np.load(tmp_path / "port" / "bottle" / "inference.npz") as a, \
+            np.load(tmp_path / "jax" / "bottle" / "inference.npz") as b:
+        assert sorted(a.files) == sorted(b.files) == ["anomaly", "threshold", "y_hat", "y_true"]
+        for k in a.files:
+            assert a[k].shape == b[k].shape, k
+        assert np.array_equal(a["y_true"], b["y_true"]) and np.array_equal(a["y_hat"], b["y_hat"])
+        np.testing.assert_allclose(a["anomaly"], b["anomaly"], rtol=rtol, atol=atol)
 
 
 def files_under(root) -> set:

@@ -90,8 +90,12 @@ def test_eval_config_defaults_equal_jax_and_unported_options_raise():
     got, want = dataclasses.asdict(EvalConfig()), dataclasses.asdict(JEvalConfig())
     assert got == want
     assert EvalConfig(imsize=(128, 128)).upsample_size == 128
-    for kw, slice_no in ((dict(scorer="mahalanobis"), "slice 7"), (dict(coreset=100), "slice 7"),
-                         (dict(data_shards=2), "slice 9"), (dict(category_shards=4), "slice 9")):
+    # the scorers are ported: both are taken, with a coreset, as the JAX
+    # config takes them
+    for kw in (dict(scorer="mahalanobis"), dict(coreset=100),
+               dict(scorer="mahalanobis", coreset=100)):
+        assert dataclasses.asdict(EvalConfig(**kw)) == dataclasses.asdict(JEvalConfig(**kw))
+    for kw, slice_no in ((dict(data_shards=2), "slice 9"), (dict(category_shards=4), "slice 9")):
         with pytest.raises(NotImplementedError, match=slice_no):
             EvalConfig(**kw)
     assert EvalConfig(data_shards=1, category_shards=1).data_shards == 1

@@ -30,8 +30,8 @@ def test_slice_modules_import_without_jax():
         [sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True, timeout=120
     )
     assert proc.returncode == 0, proc.stdout + proc.stderr
-    assert len(MODULES) >= 45, len(MODULES)  # a dropped module fails here
-    for m in ("ssad_tpu_torch.evaluation.evaluator", "ssad_tpu_torch.evaluation.metrics",
+    assert len(MODULES) >= 46, len(MODULES)  # a dropped module fails here
+    for m in ("ssad_tpu_torch.ops.coreset", "ssad_tpu_torch.evaluation.evaluator", "ssad_tpu_torch.evaluation.metrics",
               "ssad_tpu_torch.evaluation.metrics_device", "ssad_tpu_torch.evaluation.error_analysis",
               "ssad_tpu_torch.models.gradcam", "ssad_tpu_torch.utils.convert"):
         assert m in MODULES, m
