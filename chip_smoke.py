@@ -116,7 +116,7 @@ failure; the script exits 0 only when all pass):
    batch, csrc/knn_tiled.cu for the fit and the scores), ``cli infer``
    and ``cli infer --patch-level``, all in process on the card; each
    kernel must run in its mode.  Then: every file the JAX evaluator writes
-   but the t-SNE figure exists, and ``inference.npz`` has the JAX keys and
+   exists (the t-SNE figure too), and ``inference.npz`` has the JAX keys and
    shapes.  Then the same steps through the library functions the CLI
    calls, synchronised, give the stages' times (embed, fit, score,
    Grad-CAM, pixel metrics: the on-card program by CUDA events against
@@ -158,9 +158,31 @@ failure; the script exits 0 only when all pass):
    against a float64 host reference (scores relative 1e-5, mean 1e-6,
    precision 1e-4 relative; equal scores either way), and the served
    scores equal to evaluate's detector's.
-9. Print one JSON line of kernel records (all three kernels, with their
-   launches on the training, evaluation and scorer paths), the card line
-   again, and the final {"ok": true, "device": ...} line.
+9. Drive localization and the serving extras on phase 6's checkpoint and
+   phase 7's test split, every k-NN and stem kernel call recorded.  (a)
+   ``cli localize`` at image level (Grad-CAM) and ``--patch-level`` (3
+   normality images → 2,523 windows → a 1,766-row bank: csrc/knn_tiled.cu
+   on the fit and each image's 841 windows, csrc/stem_pool.cu on every
+   window batch), 5 panels each; launch counts reset just before, read
+   just after; wall seconds per image.  (b) The t-SNE of 339 seeded
+   512-d points on the card (``evaluate``'s 256 artificial + 83 test
+   embeddings; phase 7's image evaluate draws ``bottle_tsne.png``).  (c)
+   The serving extras path, launch counts reset just before and read just
+   after: ``cli export --dtype int8|bfloat16 --validate`` in image and
+   patch mode (``--n-normality-images 3``), a float32 image artifact,
+   ``cli evaluate-artifact`` of the int8 ones, then a server over the f32
+   image artifact and one over the int8 patch artifact (each with the
+   ``serve`` reloader), each driven by ``cli serve-bench --url`` at 4
+   clients while ``/metrics`` is scraped and one ``POST /admin/reload``
+   lands mid-run.  Then: every recorded call against its plain version
+   on its own inputs (k-NN 1e-5; the stem at phase 2's tolerance), no
+   failed or shed request, the reload answered 200, the metrics carry the
+   request counters and the drift families, the artifacts' sizes and the
+   int8-vs-f32 drift.
+10. Print one JSON line of kernel records (all three kernels, with their
+   launches on the training, evaluation, scorer, localize and serving
+   extras paths), the card line again, and the final {"ok": true,
+   "device": ...} line.
 """
 
 from __future__ import annotations
@@ -210,6 +232,11 @@ EVAL_SPLIT = (("good", 20), ("broken_large", 20), ("broken_small", 22), ("contam
 WIDE_ARCH, WIDE_NORMALITY, WIDE_CORESET, WIDE_F32_WINDOWS = "wide_resnet50_2", 10, 2048, 8
 EVAL_CORESET = 512
 MAHA_REL_TOL = 1e-5
+#: phase 9: panels per localize level, t-SNE points (evaluate's 256
+#: artificial + 83 test embeddings), the patch exports' normality images,
+#: serve-bench requests per artifact
+LOCALIZE_IMAGES, TSNE_POINTS, EXTRAS_NORMALITY = 5, 339, 3
+EXTRAS_IMAGE_REQUESTS, EXTRAS_PATCH_REQUESTS = 640, 320
 
 
 def fail(msg: str) -> None:
@@ -760,9 +787,7 @@ def drive_patch_path(device, work: Path, seed: int = 1):
         bodies.append(buf.getvalue())
 
     # ---- the patch path: counts to 0 just before, read just after ---------
-    knn.knn_cosine_scores_cuda.launches = 0
-    knn.knn_cosine_scores_tiled_cuda.launches = 0
-    stem_pool.stem_pool_cuda.launches = 0
+    _zero_launches()
     artifact = work / "bottle_patch.ssadpt"
     t0 = time.perf_counter()
     rc = cli.main(["export", "--models-dir", str(models_dir), "--subject", "bottle",
@@ -1297,6 +1322,14 @@ def write_eval_split(category_dir: Path, seed: int = 5, split=EVAL_SPLIT) -> int
     return n
 
 
+def _zero_launches() -> None:
+    from ssad_tpu_torch.ops import knn, stem_pool
+
+    knn.knn_cosine_scores_cuda.launches = 0
+    knn.knn_cosine_scores_tiled_cuda.launches = 0
+    stem_pool.stem_pool_cuda.launches = 0
+
+
 def _eval_launches():
     from ssad_tpu_torch.ops import knn, stem_pool
 
@@ -1543,7 +1576,7 @@ def eval_stages(device, root: Path, ckpt: Path) -> dict:
 #: files the JAX evaluator writes per mode (but <subject>_tsne.png, slice 6b)
 EVAL_FILES = {
     "image": ["bottle/bottle_artificial_report.txt", "bottle/bottle_image_roc.png",
-              "bottle/bottle_pixel_roc.png", "bottle/bottle_pro.png",
+              "bottle/bottle_pixel_roc.png", "bottle/bottle_pro.png", "bottle/bottle_tsne.png",
               "tables/objects_rocs.png"]
     + [f"tables/{d}/{t}.{e}" for d, e in (("csv", "csv"), ("latex", "tex"), ("markdown", "md"))
        for t in ("image_all_scores", "image_objects_scores", "artificial_all_scores")],
@@ -1566,9 +1599,7 @@ def drive_evaluation(device, work: Path) -> dict:
     record = {"test_images": n_test}
 
     # ---- the evaluation path: counts to 0 just before, read just after -----
-    knn.knn_cosine_scores_cuda.launches = 0
-    knn.knn_cosine_scores_tiled_cuda.launches = 0
-    stem_pool.stem_pool_cuda.launches = 0
+    _zero_launches()
     runs = {}
     for name, argv in (
         ("evaluate_image", ["evaluate", "--subjects", "bottle",
@@ -1623,14 +1654,20 @@ def drive_evaluation(device, work: Path) -> dict:
 @contextlib.contextmanager
 def recording(module, name: str):
     """Replace the kernel wrapper ``module.name`` by one that records each
-    call's (queries, bank, k, result); its ``launches`` count carries over
-    and back."""
+    call's positional and keyword arguments (tensors cloned) and result as
+    one tuple; its ``launches`` count carries over and back."""
+    import torch
+
     original = getattr(module, name)
     calls = []
 
-    def wrapper(queries, bank, k=3):
-        out = original(queries, bank, k=k)
-        calls.append((queries.detach().clone(), bank, k, out.detach().clone()))
+    def keep(a):
+        return a.detach().clone() if torch.is_tensor(a) else a
+
+    def wrapper(*args, **kw):
+        out = original(*args, **kw)
+        calls.append(tuple(keep(a) for a in args) + tuple(keep(v) for v in kw.values())
+                     + (out.detach().clone(),))
         return out
 
     wrapper.launches = original.launches  # the wrapper's body counts on this name
@@ -1893,9 +1930,7 @@ def drive_coreset_eval(device, work: Path) -> dict:
             "--dataset-dir", str(work / "synth_mvtec"), "--models-dir", str(work / "train_out"),
             "--imsize", str(IMSIZE), "--seed", "0"]
     # ---- the coreset path: counts to 0 just before, read just after --------
-    knn.knn_cosine_scores_cuda.launches = 0
-    knn.knn_cosine_scores_tiled_cuda.launches = 0
-    stem_pool.stem_pool_cuda.launches = 0
+    _zero_launches()
     with recording(knn, "knn_cosine_scores_cuda") as calls:
         lines, wall = _run_cli(argv)
         launches = _eval_launches()
@@ -2070,6 +2105,261 @@ def drive_scorers(device, work: Path) -> dict:
     return out
 
 
+@contextlib.contextmanager
+def recording_every_kernel():
+    """Every call of the three kernel wrappers, recorded: {kernel name:
+    calls} (``recording``)."""
+    from ssad_tpu_torch.ops import knn, stem_pool
+
+    with recording(knn, "knn_cosine_scores_cuda") as resident, \
+            recording(knn, "knn_cosine_scores_tiled_cuda") as tiled, \
+            recording(stem_pool, "stem_pool_cuda") as stem:
+        yield {"knn_cosine_scores": resident, "knn_cosine_scores_tiled": tiled,
+               "stem_pool": stem}
+
+
+def held_against_plain(calls: dict, what: str) -> dict:
+    """Each recorded kernel call against its plain version on its own
+    inputs: the k-NN kernels within KNN_TOL, the stem at phase 2's
+    tolerance → {kernel: {shape: largest |Δ|}} (the stem's also its
+    share of elements not bit-equal)."""
+    import torch
+
+    from ssad_tpu_torch.ops import knn, stem_pool
+
+    plains = {"knn_cosine_scores": knn.knn_cosine_scores_plain,
+              "knn_cosine_scores_tiled": knn.knn_cosine_scores_tiled_plain}
+    out = {}
+    for name, recorded in calls.items():
+        errs = {}
+        for call in recorded:
+            if name == "stem_pool":
+                x, k4, scale, bias, got = call
+                want = stem_pool.stem_pool_plain(x, k4, scale, bias).float()
+                got = got.float()
+                key = f"{x.shape[0]}"
+                flipped = float((got != want).float().mean())
+                prev = errs.get(key, {"max_abs_err": 0.0, "flipped_share": 0.0})
+                errs[key] = {"max_abs_err": max(prev["max_abs_err"],
+                                                float((got - want).abs().max())),
+                             "flipped_share": max(prev["flipped_share"], flipped)}
+                if not (flipped < STEM_MAX_FLIPPED and bool(torch.allclose(
+                        got, want, rtol=STEM_RTOL, atol=STEM_ATOL))):
+                    fail(f"{what}: stem kernel call on {key} windows vs plain: {errs[key]}")
+                continue
+            q, bank, k, got = call
+            key = f"{q.shape[0]}x{bank.shape[0]}"
+            err = float((got - plains[name](q, bank, k=k)).abs().max())
+            errs[key] = max(errs.get(key, 0.0), err)
+            if not err <= KNN_TOL:
+                fail(f"{what}: {name} call at {key} vs plain: {err} > {KNN_TOL}")
+        out[name] = errs
+    return out
+
+
+def drive_localize(device, work: Path) -> dict:
+    """Phase 9a: cli localize at both levels on phase 6's checkpoint and
+    phase 7's test split, every kernel call recorded."""
+    root, models = work / "synth_mvtec", work / "train_out"
+    runs = {}
+    # ---- the localize path: counts to 0 just before, read just after -------
+    _zero_launches()
+    with recording_every_kernel() as calls:
+        for level in ("image", "patch"):
+            before = _eval_launches()
+            lines, wall = _run_cli(["localize", "--dataset-dir", str(root), "--models-dir",
+                                    str(models), "--subject", "bottle", "--imsize", str(IMSIZE),
+                                    "--outputs-dir", str(work / f"localize_{level}"),
+                                    "--num-images", str(LOCALIZE_IMAGES)]
+                                   + (["--patch-level"] if level == "patch" else []))
+            after = _eval_launches()
+            runs[level] = {"wall_s": wall, "s_per_image": wall / LOCALIZE_IMAGES,
+                           "panels": len(lines),
+                           "launches": {k: after[k] - before[k] for k in after}}
+        launches = _eval_launches()
+    # ---- end of the localize path ------------------------------------------
+    for level, run in runs.items():
+        panels = sorted((work / f"localize_{level}" / "bottle").glob("bottle_*_panel.png"))
+        if run["panels"] != LOCALIZE_IMAGES or len(panels) != LOCALIZE_IMAGES:
+            fail(f"localize {level}: printed {run['panels']} panels, wrote {len(panels)}")
+    if runs["patch"]["launches"]["knn_cosine_scores_tiled"] < 1 + LOCALIZE_IMAGES or \
+            runs["patch"]["launches"]["stem_pool"] < 2 + LOCALIZE_IMAGES:
+        fail(f"localize --patch-level launches {runs['patch']['launches']}")
+    rec = {"runs": runs, "launches": launches,
+           "calls": {k: len(v) for k, v in calls.items()},
+           "vs_plain": held_against_plain(calls, "localize")}
+    if any(rec["calls"][k] != launches[k] for k in launches):
+        fail(f"localize: recorded calls {rec['calls']} != launches {launches}")
+    return rec
+
+
+def drive_tsne(device) -> dict:
+    """Phase 9b: the port's t-SNE of 339 seeded 512-d points on the card."""
+    import torch
+
+    from ssad_tpu_torch.evaluation.tsne import tsne
+
+    rng = np.random.default_rng(11)
+    centers = rng.normal(0, 1, (6, 512))
+    labels = rng.integers(0, 6, TSNE_POINTS)
+    x = torch.from_numpy((centers[labels] + rng.normal(0, 0.8, (TSNE_POINTS, 512)))
+                         .astype(np.float32)).to(device)
+    times, pts = [], None
+    for _ in range(2):
+        pts, ms = _timed(lambda: tsne(x, seed=0))
+        times.append(ms)
+    pts = pts.cpu().numpy()
+    if pts.shape != (TSNE_POINTS, 2) or not np.isfinite(pts).all():
+        fail(f"t-SNE of {TSNE_POINTS} points: shape {pts.shape}, finite {np.isfinite(pts).all()}")
+    # class separation: the mean distance to a point's own class centroid
+    # against the mean distance to the others'
+    cents = np.stack([pts[labels == c].mean(axis=0) for c in range(6)])
+    d = np.linalg.norm(pts[:, None, :] - cents[None], axis=2)
+    own = float(d[np.arange(TSNE_POINTS), labels].mean())
+    other = float(d[np.arange(TSNE_POINTS)[:, None], np.arange(6)[None]][
+        np.arange(6)[None] != labels[:, None]].mean())
+    if not own < 0.5 * other:
+        fail(f"t-SNE of {TSNE_POINTS} points does not separate its 6 classes: {own} vs {other}")
+    return {"points": TSNE_POINTS, "ms": times, "own_centroid_distance": own,
+            "other_centroid_distance": other}
+
+
+def _bench_with_reload(device, artifact: Path, requests: int) -> dict:
+    """A server over ``artifact`` with the ``serve`` reloader; ``cli
+    serve-bench --url`` against it at 4 clients while the main thread
+    scrapes /metrics and posts one /admin/reload mid-run: once a quarter
+    of the requests are in, answered while the bench still runs, and
+    followed by requests that the reloaded models serve."""
+    import urllib.request
+
+    from ssad_tpu_torch import cli
+    from ssad_tpu_torch.serving.cli import _load_artifact_models
+    from ssad_tpu_torch.serving.server import AnomalyHTTPServer
+
+    def load():
+        return _load_artifact_models([str(artifact)], 5.0, 256, device)
+
+    models, warmup_s = load()
+    server = AnomalyHTTPServer(models=models, port=0, reloader=load).start()
+    url = f"http://127.0.0.1:{server.port}"
+    out = {}
+
+    def bench():
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            out["rc"] = cli.main(["serve-bench", "--url", url, "--requests", str(requests),
+                                  "--concurrency", "4", "--warmup", "8",
+                                  "--imsize", str(IMSIZE)])
+        out["report"] = json.loads(buf.getvalue().strip().splitlines()[-1])
+
+    try:
+        thread = threading.Thread(target=bench)
+        thread.start()
+        while thread.is_alive() and server.models["bottle"][0].stats()["requests"] < requests // 4:
+            time.sleep(0.01)
+        mid_run = thread.is_alive()
+        req = urllib.request.Request(url + "/admin/reload", data=b"", method="POST")
+        with urllib.request.urlopen(req, timeout=300) as r:
+            reload = {"status": r.status, "mid_run": mid_run, **json.loads(r.read().decode())}
+        reload["running_after"] = thread.is_alive()
+        reloaded = server.models["bottle"][0]
+        at_reload = reloaded.stats()["requests"]
+        with urllib.request.urlopen(url + "/metrics", timeout=60) as r:
+            metrics = r.read().decode()
+        thread.join(600)
+        reload["served_after"] = reloaded.stats()["requests"] - at_reload
+    finally:
+        server.stop()
+    report = out.get("report") or {}
+    if out.get("rc") != 0 or report.get("ok") != requests or report.get("errors") or \
+            report.get("shed"):
+        fail(f"serve-bench on {artifact.name}: rc {out.get('rc')}, {report}")
+    need = ('ssad_requests_total{model="bottle"}', "# TYPE ssad_score_drift_ks gauge",
+            "# TYPE ssad_request_latency_ms summary")
+    if reload["status"] != 200 or reload["reloaded"] != ["bottle"] or \
+            not all(n in metrics for n in need) or not reload["mid_run"] or \
+            not reload["running_after"] or reload["served_after"] < 1:
+        fail(f"{artifact.name}: reload {reload}, metrics lines {metrics.splitlines()[:6]}")
+    lat = report["latency_ms"]
+    return {"qps": report["qps"], "p50_ms": lat["p50"], "p95_ms": lat["p95"],
+            "requests": requests, "concurrency": 4, "wall_s": report["wall_s"],
+            "reload": reload, "warmup_s": warmup_s,
+            "metrics_lines": len(metrics.splitlines()),
+            "mean_batch_occupancy": (report.get("server_stats") or {}).get(
+                "mean_batch_occupancy")}
+
+
+def drive_serving_extras(device, work: Path) -> dict:
+    """Phase 9c: export --dtype --validate, evaluate-artifact, and
+    serve-bench with /metrics and /admin/reload, every kernel call
+    recorded."""
+    root, models = work / "synth_mvtec", work / "train_out"
+    rec = {"exports": {}, "evaluate_artifact": {}}
+    # ---- the serving extras path: counts to 0 just before, read just after --
+    _zero_launches()
+    with recording_every_kernel() as calls:
+        for mode in ("image", "patch"):
+            for dtype in ("int8", "bfloat16", None):
+                if dtype is None and mode == "patch":
+                    continue
+                name = f"{mode}_{dtype or 'float32'}"
+                argv = ["export", "--models-dir", str(models), "--subject", "bottle",
+                        "--mode", mode, "--batch", str(BATCH),
+                        "--out", str(work / f"{name}.ssadpt")]
+                if mode == "patch":
+                    argv += ["--dataset-dir", str(root), "--n-normality-images",
+                             str(EXTRAS_NORMALITY)]
+                if dtype:
+                    argv += ["--dtype", dtype, "--validate"]
+                lines, wall = _run_cli(argv)
+                info = json.loads(lines[-1])
+                rec["exports"][name] = {"wall_s": wall, "bytes": info["bytes"],
+                                        "validation": info["validation"]}
+                v = info["validation"]
+                if dtype and (not v["finite"] or not v["max_abs_score_drift"] < 0.05
+                              or v.get("label_agreement", 1.0) < 0.9):
+                    fail(f"export {name} --validate: {v}")
+        for name in ("image_int8", "patch_int8"):
+            lines, wall = _run_cli(["evaluate-artifact", "--artifact",
+                                    str(work / f"{name}.ssadpt"), "--dataset-dir", str(root)])
+            info = json.loads(lines[-1])
+            info["wall_s"] = wall
+            rec["evaluate_artifact"][name] = info
+            keys = ("image_auroc", "f1_optimal") if name.startswith("image") else \
+                ("pixel_auroc", "iou", "aupro")
+            if info["n_test"] < 80 or info["dtype"] != "int8" or \
+                    not all(0.0 <= info[k] <= 1.0 for k in keys):
+                fail(f"evaluate-artifact {name}: {info}")
+        rec["serve_bench"] = {
+            "image_float32": _bench_with_reload(device, work / "image_float32.ssadpt",
+                                                EXTRAS_IMAGE_REQUESTS),
+            "patch_int8": _bench_with_reload(device, work / "patch_int8.ssadpt",
+                                             EXTRAS_PATCH_REQUESTS)}
+        launches = _eval_launches()
+    # ---- end of the serving extras path -------------------------------------
+    rec["launches"] = launches
+    rec["calls"] = {k: len(v) for k, v in calls.items()}
+    if any(rec["calls"][k] != launches[k] for k in launches):
+        fail(f"serving extras: recorded calls {rec['calls']} != launches {launches}")
+    rec["vs_plain"] = held_against_plain(calls, "serving extras")
+    f32 = rec["exports"]["image_float32"]["bytes"]
+    rec["bytes_vs_float32"] = {k: v["bytes"] / f32 for k, v in rec["exports"].items()}
+    return rec
+
+
+def drive_extras(device, work: Path) -> dict:
+    """Phase 9: localize, t-SNE, and the serving extras."""
+    out = {}
+    for name, fn in (("localize", lambda: drive_localize(device, work)),
+                     ("tsne", lambda: drive_tsne(device)),
+                     ("serving", lambda: drive_serving_extras(device, work))):
+        t0 = time.perf_counter()
+        out[name] = fn()
+        out[name]["phase_s"] = time.perf_counter() - t0
+        print(f"extras {name}: {json.dumps(out[name])} ({card_line()})", flush=True)
+    return out
+
+
 def main() -> int:
     try:
         import torch
@@ -2114,6 +2404,7 @@ def main() -> int:
         train = drive_training(device, work)
         evaluation = drive_evaluation(device, work)
         scorers = drive_scorers(device, work)
+        extras = drive_extras(device, work)
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
@@ -2171,8 +2462,15 @@ def main() -> int:
                                  + scorers["mahalanobis"]["stem_pool_launches"]),
     })
     for rec in kernels:
+        name = rec["name"]
+        rec["localize_path_launches"] = extras["localize"]["launches"][name]
+        rec["localize_path_vs_plain"] = extras["localize"]["vs_plain"][name]
+        rec["serving_extras_path_launches"] = extras["serving"]["launches"][name]
+        rec["serving_extras_path_vs_plain"] = extras["serving"]["vs_plain"][name]
         if (rec["launches"] < 1 or rec.get("train_path_launches", 1) < 1
-                or rec["eval_path_launches"] < 1 or rec["scorer_path_launches"] < 1):
+                or rec["eval_path_launches"] < 1 or rec["scorer_path_launches"] < 1
+                or rec["serving_extras_path_launches"] < 1
+                or (name != "knn_cosine_scores" and rec["localize_path_launches"] < 1)):
             fail(f"{rec['name']} was not launched on its path")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card_line(), flush=True)

@@ -11,25 +11,32 @@ CPU request it raises (utils/device.py).  The kernels of the serving
 paths are CUDA written for Hopper (csrc/knn.cu, csrc/knn_tiled.cu,
 csrc/stem_pool.cu), built with nvcc at first use.
 
-Package map (so far: the image- and patch-mode serving paths, the pretext
-synthesizer and two-phase training):
+Package map (so far: the image- and patch-mode serving paths with their
+extras, the pretext synthesizer, two-phase training, evaluation with its
+figures and localization, the other scorers and backbones):
   config, constants  — dataclass configuration (TrainConfig and its JSON
                        form), MVTec taxonomy
-  cli                — train, import-ckpt, export, serve, score, qa
+  cli                — train, import-ckpt, evaluate, infer, localize, qa;
+                       the serving commands of serving/cli.py
   utils/             — device resolution, reference-checkpoint I/O, the
                        JAX-state bridge, torchvision backbone weights,
-                       dataset listing
+                       dataset listing, label conversions
   ops/               — image ops, window extraction, rasterisers, the fused
-                       stem and k-NN scoring, each with its kernel
-  models/            — ResNet-18 (the folded 32×32 stem, Flax-order
-                       BatchNorm), PeraNet and its init, AnomalyDetector
+                       stem and k-NN scoring, each with its kernel, the
+                       k-center coreset
+  models/            — ResNet-18/34/50 and Wide-ResNet-50-2 (the folded
+                       32×32 stem, Flax-order BatchNorm), PeraNet and its
+                       init, the k-NN and Mahalanobis detectors, Grad-CAM
   train/             — the memory bank, the stage optimizer, the trainer,
                        checkpoints, the train step's cross-device check
-  evaluation/        — InferenceEngine (image and patch paths), the
-                       normality source, QA grid and history plots
-  data/              — image decoding, the train-good split, object masks,
-                       the CutPaste synthesizer
-  serving/           — export artifact, batching HTTP server, CLI
+  evaluation/        — InferenceEngine (image and patch paths), metrics on
+                       the host and the card, the evaluator and its tables,
+                       the localizer, t-SNE, figures
+  data/              — image decoding, the train-good split, the test set,
+                       object masks, the CutPaste synthesizer
+  serving/           — export artifacts (float32, bfloat16, int8 weights),
+                       batching HTTP server (/metrics, /admin/reload),
+                       client, load generator, score drift, CLI
 """
 
 __version__ = "0.1.0"

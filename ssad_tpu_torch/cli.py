@@ -1,5 +1,5 @@
-"""Command line: ``python -m ssad_tpu_torch.cli
-train|import-ckpt|evaluate|infer|export|serve|score|qa``.
+"""Command line: ``python -m ssad_tpu_torch.cli train|import-ckpt|evaluate|
+infer|localize|export|serve|serve-bench|score|evaluate-artifact|qa``.
 
 Counterpart of ssad_tpu/cli.py for the commands ported so far (the
 serving subcommands live in serving/cli.py, as in the JAX package).
@@ -208,6 +208,27 @@ def cmd_infer(args) -> int:
     return 0
 
 
+def cmd_localize(args) -> int:
+    """Localization panels of --num-images sampled test images of one
+    subject under <outputs-dir>/<subject>/ (evaluation/localizer.py);
+    prints their paths, one a line."""
+    from ssad_tpu_torch.data import mvtec
+    from ssad_tpu_torch.evaluation import inference as inf
+    from ssad_tpu_torch.evaluation.localizer import Localizer
+
+    cfg = EvalConfig(patch_localization=args.patch_level, patch_dim=args.patch_dim,
+                     stride=args.stride, imsize=(args.imsize, args.imsize))
+    engine, _, _ = inf.load_engine(
+        Path(args.models_dir) / args.subject / "best_model.ckpt", args.device)
+    data = mvtec.load_split(args.dataset_dir, args.subject, imsize=cfg.imsize)
+    test = mvtec.prepare_mvtec_test_data(args.dataset_dir, args.subject, imsize=cfg.imsize)
+    loc = Localizer(engine, cfg).setup(data)
+    paths = loc.localize(test, str(Path(args.outputs_dir) / args.subject), args.num_images,
+                         seed=args.seed)
+    print("\n".join(paths))
+    return 0
+
+
 def cmd_qa(args) -> int:
     """Render the augmentation visual-QA grid of one subject (reference
     test_artificial_transformations.py:226-435): one batch of synthetic
@@ -337,6 +358,24 @@ def build_parser() -> argparse.ArgumentParser:
                        help="score synthetic pretext data instead of the MVTec test set")
     inf_p.add_argument("--num-samples", type=int, default=256)
     inf_p.set_defaults(fn=cmd_infer)
+
+    lo = sub.add_parser("localize", help="qualitative localization panels")
+    lo.add_argument("--dataset-dir", required=True)
+    lo.add_argument("--outputs-dir", default="outputs")
+    lo.add_argument("--models-dir", required=True,
+                    help="reads <models-dir>/<subject>/best_model.ckpt")
+    lo.add_argument("--subject", required=True)
+    lo.add_argument("--imsize", type=int, default=data_cfg.imsize[0])
+    lo.add_argument("--seed", type=int, default=0,
+                    help="seed of the sampled test images")
+    lo.add_argument("--patch-level", action="store_true")
+    lo.add_argument("--patch-dim", type=int, default=eval_cfg.patch_dim)
+    lo.add_argument("--patch-size", type=int, default=data_cfg.patch_size)
+    lo.add_argument("--stride", type=int, default=eval_cfg.stride)
+    lo.add_argument("--batch-size", type=int, default=data_cfg.batch_size)
+    lo.add_argument("--num-images", type=int, default=5)
+    serving_cli.add_device_flag(lo)
+    lo.set_defaults(fn=cmd_localize)
 
     serving_cli.register(sub)
 

@@ -18,8 +18,9 @@ or csrc/knn_tiled.cu above 1024 bank rows), stem (csrc/stem_pool.cu on
 32×32 windows), Grad-CAM and the pixel metrics (``metrics_device``) run
 on the card; only scalars, curves and the figures' inputs come back.
 
-The files are the JAX evaluator's, but for ``<subject>_tsne.png`` (the
-t-SNE figure is slice 6b of the port).  As in the JAX package, the patch
+The files are the JAX evaluator's; ``<subject>_tsne.png`` is drawn from
+the port's own t-SNE (evaluation/tsne.py), run on the embeddings' device,
+where the JAX package calls scikit-learn's.  As in the JAX package, the patch
 branch scores every test image, and patch normality comes from
 ``n_normality_images`` train images.  The 70/30 fit split is permuted by a
 CPU ``torch.Generator`` seeded with ``cfg.seed`` (the JAX package uses
@@ -261,6 +262,13 @@ def evaluate_category(engine: inf.InferenceEngine, bank, data: mvtec.PretextData
                     result.artificial.classification_report() + "\n")
                 ErrorAnalyzer(art).analyze(
                     output_path=str(Path(outputs_dir) / f"{subject}_errors.png"), seed=cfg.seed)
+                vis.plot_tsne(
+                    torch.cat([torch.as_tensor(art.embeddings),
+                               torch.as_tensor(outputs.embeddings)]),
+                    np.concatenate([_host(art.y_true_multiclass),
+                                    _host(outputs.y_true_multiclass)]),
+                    outputs_dir, f"{subject.upper()} feature visualization",
+                    f"{subject}_tsne.png")
 
         # Grad-CAM maps of every test image (zero where the classifier says
         # 'good'), scored at pixel level (evaluator.py:262-284)

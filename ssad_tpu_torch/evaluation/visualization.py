@@ -1,18 +1,24 @@
 """Curves, overlays, visual-QA figures and training curves.
 
 Counterpart of ssad_tpu/evaluation/visualization.py's ``plot_history``
-(:49-66), ``plot_curve`` (:69-84), ``plot_multiple_curves`` (:87-101),
-``heatmap_overlay`` (:146-153), ``save_image`` (:175-180) and
-``augmentation_grid`` (:211-235).  The JAX package draws with matplotlib;
-the port draws with PIL, which every machine the port runs on has: the
-grid is one uint8 mosaic (one row per pretext class in PRETEXT_CLASSES
-order, its name at the row's left, up to GRID_COLUMNS samples), the
-history two line-chart panels, loss and accuracy, a curve plot one
-square panel on [0, 1]² with the chance diagonal and a legend.  The
-heatmap colours come from ``MAGMA``, matplotlib's magma table as uint8
-constants, indexed as matplotlib indexes it, so an overlay equals the
-JAX package's bit for bit.  ``plot_tsne``, ``segmentation_overlay`` and
-``localization_panel`` are slice 6b of the port.
+(:48-66), ``plot_curve`` (:69-84), ``plot_multiple_curves`` (:86-101),
+``plot_tsne`` (:113-135), ``heatmap_overlay`` (:138-145),
+``segmentation_overlay`` (:148-163), ``save_image`` (:166-171),
+``localization_panel`` (:174-208) and ``augmentation_grid`` (:211-235).
+The JAX package draws with matplotlib (and scikit-learn's t-SNE, and
+OpenCV's Canny border when it is installed); the port draws with PIL,
+which every machine the port runs on has: the grid is one uint8 mosaic
+(one row per pretext class in PRETEXT_CLASSES order, its name at the
+row's left, up to GRID_COLUMNS samples), the history two line-chart
+panels, loss and accuracy, a curve plot one square panel on [0, 1]² with
+the chance diagonal and a legend, the t-SNE figure one square scatter
+panel (the embedding from evaluation/tsne.py), a localization panel one
+row of titled tiles.  The heatmap colours come from ``MAGMA``,
+matplotlib's magma table as uint8 constants, indexed as matplotlib
+indexes it, so an overlay equals the JAX package's bit for bit, and so
+does a segmentation overlay's tint; its border is the mask's own edge
+(mask pixels with a 4-neighbour outside the mask), where the JAX package
+draws Canny's edges of the mask.
 """
 
 from __future__ import annotations
@@ -158,11 +164,115 @@ def heatmap_overlay(image, anomaly_map) -> np.ndarray:
     """uint8 overlay of a [0,1] anomaly map on a [0,1] RGB image in the
     magma colours, half and half (reference visualization.py:274-283)."""
     img = (np.clip(np.asarray(image), 0, 1) * 255).astype(np.uint8)
-    amap = np.clip(np.asarray(anomaly_map), 0, 1)
-    # matplotlib's lookup: floor(v · 256), 1.0 → the last entry; NaN → black
-    idx = np.minimum(np.nan_to_num(amap * 256, nan=0.0).astype(int), 255)
-    heat = np.where(np.isnan(amap)[..., None], np.uint8(0), _magma_u8()[idx])
-    return (0.5 * img + 0.5 * heat).astype(np.uint8)
+    return (0.5 * img + 0.5 * _magma(anomaly_map)).astype(np.uint8)
+
+
+def _magma(values) -> np.ndarray:
+    """Values in [0, 1] → uint8 RGB by matplotlib's lookup: floor(v · 256),
+    1.0 → the last entry, NaN → black."""
+    v = np.clip(np.asarray(values), 0, 1)
+    idx = np.minimum(np.nan_to_num(v * 256, nan=0.0).astype(int), 255)
+    return np.where(np.isnan(v)[..., None], np.uint8(0), _magma_u8()[idx])
+
+
+def mask_border(mask) -> np.ndarray:
+    """The pixels of a boolean mask that have a 4-neighbour outside it
+    (the image's edge counts as outside)."""
+    m = np.asarray(mask).astype(bool)
+    inner = np.pad(m, 1, constant_values=False)
+    interior = inner[:-2, 1:-1] & inner[2:, 1:-1] & inner[1:-1, :-2] & inner[1:-1, 2:]
+    return m & ~interior
+
+
+def segmentation_overlay(image, mask, color=(255, 0, 0), alpha: float = 0.35) -> np.ndarray:
+    """Tint the predicted-anomalous region of a [0,1] RGB image and draw
+    its border (reference visualization.py:169-177) → uint8."""
+    img = (np.clip(np.asarray(image), 0, 1) * 255).astype(np.uint8).copy()
+    m = np.asarray(mask).astype(bool)
+    tint = np.zeros_like(img)
+    tint[...] = color
+    img[m] = (img[m] * (1 - alpha) + tint[m] * alpha).astype(np.uint8)
+    img[mask_border(m)] = color
+    return img
+
+
+def _magma_image(a) -> np.ndarray:
+    """A 2-D array as matplotlib's ``imshow(a, cmap="magma")`` shows it:
+    min-max normalised, then the magma lookup → uint8 RGB."""
+    a = np.asarray(a, np.float64)
+    finite = a[np.isfinite(a)]
+    lo, hi = (float(finite.min()), float(finite.max())) if finite.size else (0.0, 0.0)
+    return _magma((a - lo) / (hi - lo) if hi > lo else np.zeros_like(a))
+
+
+def localization_panel(original, anomaly_map, gt_mask, predicted_mask, saving_path,
+                       name: str) -> str:
+    """One row of titled tiles — original, heatmap overlay, anomaly map,
+    ground truth (when given), predicted mask, segmentation (reference
+    localizer.py:164-186) → ``saving_path/name``."""
+    from PIL import Image, ImageDraw
+
+    original = np.asarray(original)
+    tiles = [("original", (np.clip(original, 0, 1) * 255).astype(np.uint8)),
+             ("heatmap", heatmap_overlay(original, anomaly_map)),
+             ("anomaly map", _magma_image(anomaly_map))]
+    if gt_mask is not None:
+        tiles.append(("ground truth", _magma_image(gt_mask)))
+    tiles.append(("predicted mask", _magma_image(np.asarray(predicted_mask).astype(float))))
+    tiles.append(("segmentation", segmentation_overlay(original, predicted_mask)))
+    h, w = original.shape[:2]
+    title_h = 16
+    canvas = Image.new("RGB", (len(tiles) * (w + _GAP), h + title_h), "white")
+    draw = ImageDraw.Draw(canvas)
+    for i, (title, tile) in enumerate(tiles):
+        left = i * (w + _GAP)
+        draw.text((left + 2, 2), title, fill="black")
+        canvas.paste(Image.fromarray(np.asarray(tile, np.uint8)), (left, title_h))
+    return _save(canvas, Path(saving_path) / name)
+
+
+#: the t-SNE figure's label names and colours (the JAX package's
+#: matplotlib ``tab:`` colours): pretext classes 0-3, real good -1, real
+#: defect 4
+TSNE_LABELS = {
+    0: ("good", "#2ca02c"),
+    1: ("polygon", "#ff7f0e"),
+    2: ("scar", "#d62728"),
+    3: ("line", "#9467bd"),
+    -1: ("mvtec good", "#1f77b4"),
+    4: ("mvtec defect", "#8c564b"),
+}
+
+
+def plot_tsne(embeddings, labels, saving_path, title: str, name: str, seed: int = 0) -> str:
+    """2-D t-SNE scatter of embeddings coloured by pretext / real label
+    (reference visualization.py:109-145) → ``saving_path/name``.  The
+    embedding runs on the device ``embeddings`` lie on
+    (evaluation/tsne.py, perplexity min(30, max(5, n // 4)))."""
+    import torch
+    from PIL import Image, ImageDraw
+
+    from ssad_tpu_torch.evaluation.tsne import tsne
+
+    emb = torch.as_tensor(embeddings, dtype=torch.float32)
+    pts = tsne(emb, seed=seed).cpu().numpy().astype(np.float64)
+    labels = np.asarray(labels).astype(int).ravel()
+    size = _CURVE_SIZE
+    canvas = Image.new("RGB", (size, size), "white")
+    draw = ImageDraw.Draw(canvas)
+    x0, y0, x1, y1 = _MARGIN, _MARGIN, size - 10, size - _MARGIN
+    draw.rectangle((x0, y0, x1, y1), outline="black")
+    draw.text((x0, 10), title, fill="black")
+    lo, hi = pts.min(axis=0), pts.max(axis=0)
+    span = np.where(hi > lo, hi - lo, 1.0)
+    at = (pts - lo) / span
+    for i, val in enumerate(np.unique(labels)):
+        label, color = TSNE_LABELS.get(int(val), (str(val), _COLORS[i % len(_COLORS)]))
+        for px, py in at[labels == val]:
+            cx, cy = x0 + 4 + (x1 - x0 - 8) * px, y1 - 4 - (y1 - y0 - 8) * py
+            draw.ellipse((cx - 2, cy - 2, cx + 2, cy + 2), fill=color)
+        draw.text((x1 - 110, y0 + 4 + 12 * i), label, fill=color)
+    return _save(canvas, Path(saving_path) / name)
 
 
 def save_image(array_u8: np.ndarray, path) -> str:

@@ -1,13 +1,17 @@
-"""Serving subcommands: export, serve, score.
+"""Serving subcommands: export, serve, serve-bench, score,
+evaluate-artifact.
 
-Counterpart of ssad_tpu/serving/cli.py (cmd_export :39, cmd_serve :208,
-cmd_score :334, the flags at :658-741) with ``--device`` added: the
-commands run on the CUDA device unless ``--device cpu`` is given, and
-fail with a clear message when there is no card.  Image and patch
-artifacts with the k-NN (``--coreset`` too) or Mahalanobis scorer are
-ported; the JAX CLI's quantized exports, ``--validate``, ``serve-bench``,
-``evaluate-artifact``, remote ``score --url``, replicas and the native
-front end wait for later slices.
+Counterpart of ssad_tpu/serving/cli.py (cmd_export :39-130, cmd_serve
+:208-255, cmd_serve_bench :257-333, cmd_score :334-580,
+cmd_evaluate_artifact :583-657, the flags at :660-831) with ``--device``
+added: the commands run on the CUDA device unless ``--device cpu`` is
+given, and fail with a clear message when there is no card.  Image and
+patch artifacts with the k-NN (``--coreset`` too) or Mahalanobis scorer,
+float32, bfloat16 or int8 weights (``--dtype``), ``--validate``,
+``/admin/reload`` through ``serve``, the load generator against an
+in-process server or a ``--url``, ``score --url`` through
+``ServingClient`` are ported; ``--devices`` replicas and the native front
+end are not (the JAX flags ``--devices`` and ``--frontend`` are absent).
 """
 
 from __future__ import annotations
@@ -43,20 +47,53 @@ def cmd_export(args) -> int:
     out = args.out or str(
         Path(args.models_dir) / args.subject / f"{args.subject}_{args.mode}.ssadpt"
     )
-    path = export_checkpoint(
-        ckpt, out, mode=args.mode, batch=args.batch,
-        imsize=(args.imsize, args.imsize) if args.imsize else None,
-        k=args.knn_k, seed=args.seed, subject=args.subject, device=device,
-        allow_pickle=args.allow_pickle, dataset_dir=args.dataset_dir,
-        n_normality_images=args.n_normality_images, patch_dim=args.patch_dim,
-        stride=args.stride, scorer=args.scorer, coreset=args.coreset,
-    )
+    def export(out_path, dtype):
+        return export_checkpoint(
+            ckpt, out_path, mode=args.mode, batch=args.batch,
+            imsize=(args.imsize, args.imsize) if args.imsize else None,
+            k=args.knn_k, seed=args.seed, subject=args.subject, device=device,
+            allow_pickle=args.allow_pickle, dataset_dir=args.dataset_dir,
+            n_normality_images=args.n_normality_images, patch_dim=args.patch_dim,
+            stride=args.stride, scorer=args.scorer, coreset=args.coreset, dtype=dtype,
+        )
+
+    path = export(out, args.dtype)
+    validation = _validate(path, args, device, export) if args.validate else None
     print(json.dumps({
         "artifact": path,
+        "validation": validation,
         "mode": args.mode,
         "bytes": Path(path).stat().st_size,
     }))
     return 0
+
+
+def _validate(path, args, device, export) -> dict:
+    """``export --validate``: the artifact on seeded uniform images is
+    finite; with ``--dtype`` a float32 twin of the same configuration
+    (same seed: the same fit and threshold) is exported beside it, scored
+    on the same images and deleted, and the largest score drift (and in
+    image mode the label agreement) is reported."""
+    import numpy as np
+
+    from ssad_tpu_torch.serving.export import load_scorer
+
+    scorer = load_scorer(path, device)
+    h, w = scorer.meta["imsize"]
+    x = np.random.default_rng(args.seed).uniform(size=(args.batch, h, w, 3)).astype(np.float32)
+    res = scorer(x)
+    validation = {"finite": bool(all(np.isfinite(r).all() for r in res))}
+    if args.dtype:
+        ref_path = export(str(Path(path).with_suffix(".float_ref.ssadpt")), None)
+        try:
+            ref = load_scorer(ref_path, device)(x)
+            validation["max_abs_score_drift"] = float(
+                np.max(np.abs(res[0].astype(np.float64) - ref[0])))
+            if args.mode == "image":
+                validation["label_agreement"] = float(np.mean(res[1] == ref[1]))
+        finally:
+            Path(ref_path).unlink(missing_ok=True)
+    return validation
 
 
 def _load_artifact_models(paths, max_delay_ms: float, max_queue, device):
@@ -96,11 +133,16 @@ def cmd_serve(args) -> int:
     from ssad_tpu_torch.utils.device import resolve_device
 
     device = resolve_device(args.device)
-    models, warmup_s = _load_artifact_models(
-        args.artifact, args.max_delay_ms, args.max_queue, device
-    )
+
+    def load():
+        return _load_artifact_models(args.artifact, args.max_delay_ms, args.max_queue, device)
+
+    models, warmup_s = load()
+    # POST /admin/reload re-runs the loader: the same paths, re-read (a
+    # newer export in their place), warmed, swapped in under traffic
     server = AnomalyHTTPServer(
-        host=args.host, port=args.port, score_timeout=args.score_timeout, models=models
+        host=args.host, port=args.port, score_timeout=args.score_timeout, models=models,
+        reloader=load,
     )
     server.start()
     print(json.dumps({
@@ -122,6 +164,66 @@ def cmd_serve(args) -> int:
         pass
     finally:
         server.stop()
+    return 0
+
+
+def cmd_serve_bench(args) -> int:
+    """Load-benchmark the serving stack (serving/loadgen.py): concurrent
+    POSTs against an in-process server over --artifact (warmed before
+    traffic) or a running one at --url.  Prints one JSON line: qps, client
+    latency percentiles, shed and error counts, the server's /stats."""
+    from urllib.parse import urlparse
+
+    from ssad_tpu_torch.serving import loadgen
+    from ssad_tpu_torch.serving.server import AnomalyHTTPServer
+    from ssad_tpu_torch.utils.device import resolve_device
+
+    if bool(args.url) == bool(args.artifact):
+        raise SystemExit("pass exactly one of --url or --artifact")
+    server = None
+    if args.artifact:
+        device = resolve_device(args.device)
+        models, _ = _load_artifact_models(args.artifact, args.max_delay_ms, args.max_queue,
+                                          device)
+        server = AnomalyHTTPServer(host="127.0.0.1", port=0, score_timeout=args.score_timeout,
+                                   models=models)
+        server.start()
+        host, port = "127.0.0.1", server.port
+        if args.model and args.model not in models:
+            server.stop()
+            raise SystemExit(f"--model {args.model!r} not among {sorted(models)}")
+        if len(models) == 1:
+            (_, meta), path = next(iter(models.values())), "/score"
+        else:
+            name = args.model or sorted(models)[0]
+            meta, path = models[name][1], f"/score/{name}"
+        imsize = tuple(meta["imsize"])
+    else:
+        u = urlparse(args.url)
+        if u.scheme not in ("", "http"):
+            raise SystemExit(f"--url scheme {u.scheme!r} is not supported (the load "
+                             "generator speaks plain http)")
+        if not u.hostname:
+            raise SystemExit(f"cannot parse host from --url {args.url!r}")
+        host, port = u.hostname, u.port or 80
+        path = f"/score/{args.model}" if args.model else (
+            u.path if u.path and u.path != "/" else "/score")
+        imsize = (args.imsize, args.imsize)
+    body = loadgen.npy_body(imsize, seed=args.seed)
+    try:
+        if args.warmup:
+            # uncounted: warms connections and the server's threads
+            loadgen.run_load(host, port, body, path=path,
+                             concurrency=min(args.concurrency, 4), total=args.warmup)
+        report = loadgen.run_load(host, port, body, path=path, concurrency=args.concurrency,
+                                  total=args.requests, timeout=args.score_timeout + 30.0,
+                                  rate=args.rate)
+        report["target"] = f"http://{host}:{port}{path}"
+        report["server_stats"] = loadgen.fetch_stats(host, port)
+    finally:
+        if server is not None:
+            server.stop()
+    print(json.dumps(report))
     return 0
 
 
@@ -157,6 +259,10 @@ def cmd_score(args) -> int:
     from ssad_tpu_torch.serving.server import coerce_image_array, heatmap_to_uint8
     from ssad_tpu_torch.utils.device import resolve_device
 
+    if bool(args.url) == bool(args.artifact):
+        raise SystemExit("pass exactly one of --artifact or --url")
+    if args.url:
+        return _score_remote(args)
     device = resolve_device(args.device)
     scorer = load_scorer(args.artifact, device)
     h, w = scorer.meta["imsize"]
@@ -216,6 +322,151 @@ def cmd_score(args) -> int:
     return 0
 
 
+def _score_remote(args) -> int:
+    """``score --url``: post each file's bytes to a running server
+    (serving/client.py; it decodes and resizes), write scores.csv (and
+    heatmaps) as the local command does, and keep going past per-file
+    client errors (4xx → errors.csv); a 5xx or a lost connection stops
+    the run with the partial results kept."""
+    import csv
+
+    from PIL import Image
+
+    from ssad_tpu_torch.serving.client import ServingClient, ServingError
+
+    client = ServingClient(args.url, model=args.model, timeout=300.0, retries=4)
+    health = client.healthz()
+    if "models" in health:
+        if not args.model:
+            raise SystemExit(f"server hosts several models ({sorted(health['models'])}); "
+                             "pass --model")
+        if args.model not in health["models"]:
+            raise SystemExit(f"server does not host model {args.model!r}; available: "
+                             f"{sorted(health['models'])}")
+        mode = health["models"][args.model]
+    else:
+        mode = health.get("mode", "image")
+    if args.heatmaps and mode != "patch":
+        raise SystemExit("--heatmaps needs a patch-mode model")
+    paths = _collect_images(args.images)
+    out_dir = Path(args.out)
+    out_dir.mkdir(parents=True, exist_ok=True)
+    heat_dir = None
+    if args.heatmaps:
+        heat_dir = out_dir / "heatmaps"
+        heat_dir.mkdir(exist_ok=True)
+    csv_path, err_path = out_dir / "scores.csv", out_dir / "errors.csv"
+    n_rows = n_anomalous = 0
+    errors = []
+    threshold = None
+
+    def flush_errors():
+        if errors:
+            with open(err_path, "w", newline="") as ef:
+                ew = csv.writer(ef)
+                ew.writerow(["path", "status", "error"])
+                ew.writerows(errors)
+
+    with open(csv_path, "w", newline="") as f:
+        wr = csv.writer(f)
+        wr.writerow(["path", "map_max", "map_mean"] if mode == "patch"
+                    else ["path", "score", "label"])
+        for i, p in enumerate(paths):
+            try:
+                out = client.score_file(p, heatmap=bool(heat_dir))
+            except ServingError as e:
+                if e.status >= 500:
+                    flush_errors()
+                    raise SystemExit(f"{p}: server failure — {e}")
+                errors.append((str(p), e.status, str(e)))
+                continue
+            except OSError as e:
+                flush_errors()
+                raise SystemExit(f"{p}: connection to {args.url} failed after {n_rows} scored "
+                                 f"files — {e!r}; partial results in {csv_path}")
+            if mode == "patch":
+                wr.writerow([str(p), out["map_max"], out["map_mean"]])
+                if heat_dir is not None:
+                    Image.fromarray(out["heatmap"]).save(heat_dir / f"{i:05d}_{p.stem}.png")
+            else:
+                threshold = out.get("threshold", threshold)
+                n_anomalous += int(out["label"])
+                wr.writerow([str(p), out["score"], out["label"]])
+            n_rows += 1
+            f.flush()
+    flush_errors()
+    summary = {"mode": mode, "n": n_rows, "csv": str(csv_path), "url": args.url,
+               "n_errors": len(errors)}
+    if errors:
+        summary["errors_csv"] = str(err_path)
+    if mode == "image":
+        summary["n_anomalous"] = n_anomalous
+        summary["threshold"] = threshold
+    if heat_dir is not None:
+        summary["heatmaps"] = str(heat_dir)
+    print(json.dumps(summary))
+    return 0
+
+
+def cmd_evaluate_artifact(args) -> int:
+    """Accuracy of an exported artifact on labelled MVTec test data — the
+    check a bfloat16 or int8 artifact needs before it serves: the artifact
+    itself, its baked threshold included, is what is measured.  Prints one
+    JSON line: image AUROC / F1 (image mode) or pixel AUROC / IoU / AUPRO
+    (patch mode), from the host metric oracles."""
+    import numpy as np
+
+    from ssad_tpu_torch.data import mvtec
+    from ssad_tpu_torch.evaluation import metrics as M
+    from ssad_tpu_torch.serving.export import load_scorer
+    from ssad_tpu_torch.utils.device import resolve_device
+
+    scorer = load_scorer(args.artifact, resolve_device(args.device))
+    meta = scorer.meta
+    subject = args.subject or meta.get("subject")
+    if not subject:
+        raise SystemExit(f"{args.artifact} has no subject in its header; pass --subject")
+    h, w = meta["imsize"]
+    test = mvtec.prepare_mvtec_test_data(args.dataset_dir, subject, imsize=(h, w))
+    labels = test.labels > 0
+    out = {"artifact": str(args.artifact), "subject": subject, "mode": meta.get("mode"),
+           "dtype": meta.get("weights_dtype"), "scorer": meta.get("scorer", "knn"),
+           "n_test": int(labels.shape[0])}
+    chunks = [scorer(test.images[lo : lo + args.chunk])
+              for lo in range(0, test.images.shape[0], args.chunk)]
+    results = tuple(np.concatenate(parts) for parts in zip(*chunks))
+    if meta.get("mode") == "image":
+        scores, served_labels = results[0], results[1]
+        fpr, tpr, _ = M.roc_curve(labels, scores)
+        thr = M.optimal_f1_threshold(labels, scores)
+        out.update({
+            "image_auroc": round(float(M.auc(fpr, tpr)), 4),
+            "f1_optimal": round(float(M.f1_score(labels, scores, thr)), 4),
+            # what production sees: verdicts at the threshold baked at export
+            "baked_threshold": meta.get("threshold"),
+            "f1_at_baked_threshold": round(float(M.f1_score(
+                labels, scores, float(meta["threshold"]))), 4),
+            "served_anomaly_rate": round(float(np.mean(served_labels)), 4),
+        })
+    else:
+        maps = results[0]
+        gts = np.asarray(test.ground_truths)
+        flat_gt, flat_scores = gts.ravel() > 0, np.nan_to_num(maps.ravel())
+        if flat_gt.any() and not flat_gt.all():
+            fpr, tpr, _ = M.roc_curve(flat_gt, flat_scores)
+            thr = M.optimal_f1_threshold(flat_gt, flat_scores)
+            fprs, pros = M.compute_pro(maps, gts)
+            out.update({
+                "pixel_auroc": round(float(M.auc(fpr, tpr)), 4),
+                "iou": round(float(M.iou_score(gts.ravel(), flat_scores, thr)), 4),
+                "aupro": round(float(M.compute_aupro(fprs, pros, args.aupro_fpr_limit)), 4),
+            })
+        else:
+            out["error"] = "test set has no (or only) defective pixels"
+    print(json.dumps(out))
+    return 0
+
+
 def register(sub) -> None:
     """Add the serving subcommand parsers to the main CLI's subparsers."""
     ex = sub.add_parser("export", help="export a checkpoint as a serving artifact")
@@ -250,6 +501,14 @@ def register(sub) -> None:
                          "selection after the calibration split (default: every row)")
     ex.add_argument("--seed", type=int, default=0,
                     help="seed of the 70/30 calibration split and the coreset's first row")
+    ex.add_argument("--dtype", default=None, choices=["bfloat16", "int8"],
+                    help="serving weights: a bfloat16 cast (half the bytes) or weight-only "
+                         "per-channel int8 (about a quarter, serving/quant.py); the bank "
+                         "and the k-NN stay float32")
+    ex.add_argument("--validate", action="store_true",
+                    help="score seeded random images with the artifact (finite); with "
+                         "--dtype also export a float32 twin of the same configuration "
+                         "and report the largest score drift and the label agreement")
     ex.add_argument("--allow-pickle", action="store_true",
                     help="permit full unpickling of a checkpoint you trust")
     add_device_flag(ex)
@@ -270,8 +529,52 @@ def register(sub) -> None:
     add_device_flag(sv)
     sv.set_defaults(fn=cmd_serve)
 
+    sb = sub.add_parser("serve-bench",
+                        help="load-benchmark the serving stack (qps, client latency "
+                             "percentiles, shed rate)")
+    sb.add_argument("--artifact", nargs="+", default=None,
+                    help="start an in-process server over these artifacts and benchmark it")
+    sb.add_argument("--url", default=None,
+                    help="benchmark a running server instead (e.g. http://127.0.0.1:8000)")
+    sb.add_argument("--model", default=None,
+                    help="model name on a multi-model server (POST /score/<name>)")
+    sb.add_argument("--concurrency", type=int, default=8,
+                    help="closed-loop workers, each keeping one request in flight")
+    sb.add_argument("--requests", type=int, default=200)
+    sb.add_argument("--rate", type=float, default=None,
+                    help="open loop: offer this many requests/s on a fixed schedule and "
+                         "measure latency from each scheduled arrival (default: closed loop)")
+    sb.add_argument("--warmup", type=int, default=16,
+                    help="uncounted warmup requests before timing; 0 skips")
+    sb.add_argument("--imsize", type=int, default=256,
+                    help="--url only: the request image's side (--artifact reads it from "
+                         "the artifact)")
+    sb.add_argument("--max-delay-ms", type=float, default=5.0)
+    sb.add_argument("--max-queue", type=int, default=256,
+                    help="admission bound of the in-process server; 0 disables")
+    sb.add_argument("--score-timeout", type=float, default=60.0)
+    sb.add_argument("--seed", type=int, default=0)
+    add_device_flag(sb)
+    sb.set_defaults(fn=cmd_serve_bench)
+
+    ea = sub.add_parser("evaluate-artifact",
+                        help="accuracy of an exported artifact on labelled MVTec test data")
+    ea.add_argument("--artifact", required=True)
+    ea.add_argument("--dataset-dir", required=True)
+    ea.add_argument("--subject", default=None, help="default: the artifact header's subject")
+    ea.add_argument("--chunk", type=int, default=32, help="test images scored per call")
+    ea.add_argument("--aupro-fpr-limit", type=float, default=0.3)
+    add_device_flag(ea)
+    ea.set_defaults(fn=cmd_evaluate_artifact)
+
     sc = sub.add_parser("score", help="offline scoring of image files/folders")
-    sc.add_argument("--artifact", required=True)
+    sc.add_argument("--artifact", default=None, help="one artifact (image or patch mode)")
+    sc.add_argument("--url", default=None,
+                    help="score against a running server instead (raw file bytes are "
+                         "posted, the server decodes and resizes; per-file 4xx errors go "
+                         "to errors.csv and the run continues)")
+    sc.add_argument("--model", default=None,
+                    help="with --url: the model's name on a multi-model server")
     sc.add_argument("images", nargs="+",
                     help="image files and/or directories (searched "
                          "recursively for png/jpg/bmp/tif/npy)")

@@ -3,8 +3,8 @@ bank, or a Gaussian's mean and precision) and the calibrated threshold,
 and the scorer that serves it.
 
 Counterpart of ssad_tpu/serving/export.py for the k-NN and Mahalanobis
-scorers in image and patch mode (not the bf16 and int8 weight artifacts).
-The JAX artifact carries a serialized StableHLO program;
+scorers in image and patch mode, with float32, bfloat16 or int8 weights
+(``dtype``, :69-95).  The JAX artifact carries a serialized StableHLO program;
 PyTorch runs eagerly, so this one carries the model's state dict instead
 and ``ServedScorer`` rebuilds PeraNet on the device.  The layout is
 
@@ -17,6 +17,14 @@ own ``format`` string, ``platform: "cuda"`` and the model configuration
 payload ``{"state_dict": …, "bank": (M, D) float32}`` — or, when the
 header's ``scorer`` is ``"mahalanobis"`` (and its ``knn_impl`` null),
 ``{"state_dict": …, "mean": (D,), "precision": (D, D)}`` float32.
+
+The header's ``weights_dtype`` says how the state dict is stored:
+``float32``; ``bfloat16``, every floating tensor cast (half the bytes);
+or ``int8``, every tensor with two or more axes quantized per output
+channel (serving/quant.py, about a quarter of the bytes) with its scales
+under the payload's ``scales``.  The bank and the k-NN stay float32:
+scores are 1 − cos with cos ≈ 1.  ``ServedScorer`` loads either back as
+bf16 values into the model's float32 parameters on the device, once.
 
 The scorer maps RAW [0,1] float images (B, H, W, 3), after ImageNet
 normalization, to
@@ -60,11 +68,19 @@ _MAGIC = b"SSADPT01"
 FORMAT = "ssad_tpu_torch.serving/1"
 
 
-def save_artifact(path: str | Path, meta: dict, state_dict: dict, **arrays: torch.Tensor) -> str:
+#: the serving weight dtypes of ``export_checkpoint`` (None is float32)
+WEIGHT_DTYPES = ("bfloat16", "int8")
+
+
+def save_artifact(path: str | Path, meta: dict, state_dict: dict,
+                  scales: Optional[dict] = None, **arrays: torch.Tensor) -> str:
     """Write an artifact; ``arrays`` are the scorer's: ``bank=`` (k-NN) or
-    ``mean=`` and ``precision=`` (Mahalanobis), stored as f32."""
+    ``mean=`` and ``precision=`` (Mahalanobis), stored as f32; ``scales``
+    the int8 weights' per-channel scales."""
     buf = io.BytesIO()
     payload = {"state_dict": {k: v.detach().cpu() for k, v in state_dict.items()}}
+    if scales:
+        payload["scales"] = {k: v.detach().cpu() for k, v in scales.items()}
     payload.update({k: v.detach().to("cpu", torch.float32).contiguous()
                     for k, v in arrays.items()})
     torch.save(payload, buf)
@@ -92,6 +108,21 @@ def read_artifact(path: str | Path) -> Tuple[dict, dict]:
     return meta, payload
 
 
+def serving_weights(state_dict: dict, dtype: Optional[str]) -> Tuple[dict, Optional[dict]]:
+    """The state dict as an artifact stores it for ``dtype`` → (tensors,
+    int8 scales or None)."""
+    if dtype is None or dtype == "float32":
+        return state_dict, None
+    if dtype == "bfloat16":
+        return {k: v.to(torch.bfloat16) if v.is_floating_point() else v
+                for k, v in state_dict.items()}, None
+    if dtype == "int8":
+        from ssad_tpu_torch.serving.quant import quantize_state_dict
+
+        return quantize_state_dict(state_dict)
+    raise ValueError(f"unknown weights dtype {dtype!r}; valid: None, {', '.join(WEIGHT_DTYPES)}")
+
+
 def export_checkpoint(
     checkpoint_path: str | Path,
     out_path: str | Path,
@@ -111,6 +142,7 @@ def export_checkpoint(
     stride: int = 8,
     scorer: str = "knn",
     coreset: Optional[int] = None,
+    dtype: Optional[str] = None,
 ) -> str:
     """Reference-layout ``best_model.ckpt`` → serving artifact.
 
@@ -134,13 +166,18 @@ def export_checkpoint(
     after the split) or 'mahalanobis' (a Gaussian; ``coreset`` is ignored:
     its moments are fixed size, and a maximin subset would bias them).
     On the card the k-NN fit's scoring runs the k-NN kernel for the bank's
-    size.
+    size.  ``dtype`` ('bfloat16', 'int8' or None for float32) is the
+    stored weights' (the normality is embedded with the checkpoint's own
+    weights whatever it is).
     """
     from ssad_tpu_torch.train.memory_bank import newest_first
     from ssad_tpu_torch.utils.ref_checkpoint import load_checkpoint
 
     if mode not in ("image", "patch"):
         raise ValueError(f"unknown mode {mode!r}; valid: image, patch")
+    if dtype not in (None, "float32") + WEIGHT_DTYPES:
+        raise ValueError(f"unknown weights dtype {dtype!r}; valid: None, "
+                         f"{', '.join(WEIGHT_DTYPES)}")
     k = EvalConfig().knn_k if k is None else k
     det = make_detector(scorer, k=k)
     dev = resolve_device(device)
@@ -180,7 +217,7 @@ def export_checkpoint(
         "upsample_to": upsample_to,
         "platform": "cuda",
         "knn_impl": knn_impl,
-        "weights_dtype": "float32",
+        "weights_dtype": dtype or "float32",
         "scorer": scorer,
         "num_classes": cfg.num_classes,
         "model": dataclasses.asdict(cfg),
@@ -190,7 +227,8 @@ def export_checkpoint(
     }
     if subject:
         meta["subject"] = subject
-    return save_artifact(out_path, meta, state_dict, **arrays)
+    weights, scales = serving_weights(state_dict, dtype)
+    return save_artifact(out_path, meta, weights, scales, **arrays)
 
 
 def _patch_normality(engine, dataset_dir, subject, imsize, n_images, patch_dim, stride, seed):
@@ -277,10 +315,17 @@ class ServedScorer:
     call, which the warmup makes).
     """
 
-    def __init__(self, meta: dict, state_dict: dict, device=None, **arrays):
+    def __init__(self, meta: dict, state_dict: dict, device=None, scales=None, **arrays):
         self.meta = meta
         self.device = resolve_device(device)
-        model = build_model(ModelConfig(**_tuples(meta["model"])))
+        model = build_model(ModelConfig(**_tuples(meta["model"]))).to(self.device)
+        state_dict = {k: v.to(self.device) for k, v in state_dict.items()}
+        if scales:
+            from ssad_tpu_torch.serving.quant import dequantize_state_dict
+
+            state_dict = dequantize_state_dict(state_dict, scales)
+        # bf16 values (a bfloat16 or int8 artifact) load into the float32
+        # parameters exactly
         model.load_state_dict(state_dict, strict=True)
         self.engine = InferenceEngine(model, self.device)
         self.scorer = meta.get("scorer", "knn")

@@ -1,6 +1,7 @@
 """Serving runtime: request batching + a stdlib HTTP front end.
 
-Counterpart of ssad_tpu/serving/server.py:52-350, :514-812.  The scorer
+Counterpart of ssad_tpu/serving/server.py:52-812 but the device replicas
+(``serve --devices``) and the native front end's hooks.  The scorer
 runs one fixed batch shape (serving/export.py), so a launch is paid per
 batch: ``BatchingScorer`` is a dynamic batcher — callers submit single
 images from any thread and wait on a future; a collector thread drains
@@ -21,11 +22,20 @@ the scorer once and fans the rows back out.
   GET  /stats    → batcher latency/occupancy counters + the score window
                  and its drift KS against the artifact's calibration
                  (serving/drift.py)
+  GET  /metrics  → the same counters in Prometheus exposition format, the
+                 JAX server's families and labels (ssad_score_drift_ks,
+                 ssad_score_drift_alert among them)
+  POST /admin/reload → re-run the server's ``reloader`` (``cli serve``:
+                 the same artifact paths, loaded and warmed) and swap the
+                 models in without dropping a request: 200 with the
+                 reloaded names and warm-up seconds, 404 with no
+                 reloader, 409 while a reload runs, 500 with the old
+                 models still serving when loading fails
 
-The JAX server's /admin/reload, /metrics, native C++ front end and
-multi-device replicas wait for a later slice.  Scorer plumbing is
-callable-agnostic: anything mapping a float32 (B, H, W, 3) array to a
-tuple of per-row arrays serves — a ServedScorer, or a test stub.
+The JAX server's multi-device replicas and native C++ front end are not
+ported.  Scorer plumbing is callable-agnostic: anything mapping a float32
+(B, H, W, 3) array to a tuple of per-row arrays serves — a ServedScorer,
+or a test stub.
 """
 
 from __future__ import annotations
@@ -239,6 +249,111 @@ def coerce_image_array(arr: np.ndarray, imsize: Tuple[int, int]) -> np.ndarray:
     return arr
 
 
+def prometheus_metrics(models: dict, trackers: Optional[dict] = None) -> str:
+    """Every model's batcher counters (and with ``trackers`` its score
+    window and drift KS) in the Prometheus text format, one ``model``
+    label per series; each family one uninterrupted group, HELP and TYPE
+    first, as strict parsers require."""
+    stats = {name: sc.stats() for name, (sc, _) in sorted(models.items())}
+    for name, st in stats.items():
+        # .get: a reload swaps models and trackers as two assignments; a
+        # scrape between them loses the score families, not the scrape
+        tracker = (trackers or {}).get(name)
+        if tracker is not None:
+            st.update(("score_" + k, v) for k, v in tracker.stats().items())
+
+    def quantiles(pairs):
+        return lambda st, name: [(f'{{model="{name}",quantile="{q}"}}', f"{st[key]:.6f}")
+                                 for q, key in pairs if st.get(key) is not None]
+
+    families = (
+        ("ssad_requests_total", "counter", "Scored requests since start.",
+         lambda st, name: [(f'{{model="{name}"}}', st["requests"])]),
+        ("ssad_batches_total", "counter", "Executed scoring batches since start.",
+         lambda st, name: [(f'{{model="{name}"}}', st["batches"])]),
+        ("ssad_replica_batches_total", "counter",
+         "Batches executed per device replica (serve --devices).",
+         lambda st, name: [(f'{{model="{name}",replica="{i}"}}', v)
+                           for i, v in enumerate(st.get("replica_batches") or [])]),
+        ("ssad_queue_depth", "gauge", "Requests waiting for admission right now.",
+         lambda st, name: [(f'{{model="{name}"}}', st["queue_depth"])]),
+        ("ssad_batch_occupancy_mean", "gauge", "Mean filled fraction of recent batches.",
+         lambda st, name: [] if st["mean_batch_occupancy"] is None else
+         [(f'{{model="{name}"}}', f"{st['mean_batch_occupancy']:.6f}")]),
+        ("ssad_request_latency_ms", "summary",
+         "Client-to-result latency quantiles over recent requests.",
+         quantiles((("0.5", "latency_ms_p50"), ("0.95", "latency_ms_p95")))),
+        ("ssad_recent_score", "summary",
+         "Anomaly-score quantiles over the recent request window.",
+         quantiles((("0.5", "score_recent_p50"), ("0.95", "score_recent_p95")))),
+        ("ssad_score_drift_ks", "gauge",
+         "KS distance of recent scores vs the artifact's calibration "
+         "distribution (serving/drift.py).",
+         lambda st, name: [] if st.get("score_drift_ks") is None else
+         [(f'{{model="{name}"}}', f"{st['score_drift_ks']:.6f}")]),
+        ("ssad_score_drift_alert", "gauge",
+         "1 when the drift KS exceeds the alpha=0.05 critical value.",
+         lambda st, name: [] if st.get("score_drift_alert") is None else
+         [(f'{{model="{name}"}}', int(st["score_drift_alert"]))]),
+    )
+    lines = []
+    for family, kind, help_text, samples in families:
+        lines += [f"# HELP {family} {help_text}", f"# TYPE {family} {kind}"]
+        for name, st in stats.items():
+            lines += [f"{family}{labels} {value}" for labels, value in samples(st, name)]
+    return "\n".join(lines) + "\n"
+
+
+def perform_reload(server) -> Tuple[int, dict]:
+    """POST /admin/reload → (status, payload).  The reloader builds and
+    warms the new batchers first; the ``models`` and ``trackers`` dicts
+    are then replaced (one assignment each) and only then the old
+    batchers closed.  ``BatchingScorer.close`` runs every request already
+    queued before it stops, so requests in flight finish on the old
+    models; one that fetched the old batcher and submits after its close
+    is retried once on the new ones (``score_with_reload_retry``).  404
+    with no reloader, 409 while another reload runs, 500 with the old
+    models still serving when the reloader raises."""
+    reloader = server.reloader
+    if reloader is None:
+        return 404, {"error": "no reloader configured (start the server via `cli serve` "
+                              "to enable /admin/reload)"}
+    if not server.reload_lock.acquire(blocking=False):
+        return 409, {"error": "a reload is already in progress"}
+    try:
+        t0 = time.perf_counter()
+        try:
+            new_models, warmup_s = reloader()
+        except Exception as e:  # the old models keep serving
+            return 500, {"error": f"reload failed; previous models still serving: {e!r}"}
+        old = server.models
+        server.trackers = {name: ScoreTracker(baseline=m.get("calibration"))
+                           for name, (_, m) in new_models.items()}
+        server.models = dict(new_models)
+        if len(new_models) == 1:
+            _, server.meta = next(iter(new_models.values()))
+        for sc, _ in old.values():
+            sc.close()
+        return 200, {"reloaded": sorted(new_models), "warmup_s": round(warmup_s, 2),
+                     "total_s": round(time.perf_counter() - t0, 2)}
+    finally:
+        server.reload_lock.release()
+
+
+def score_with_reload_retry(server, name: str, scorer: BatchingScorer, image, timeout: float):
+    """``scorer.score``, retried once on the server's current model of that
+    name when a reload closed the batcher this request had fetched."""
+    try:
+        return scorer.score(image, timeout=timeout)
+    except RuntimeError as e:
+        if "scorer is closed" not in str(e):
+            raise
+        current = server.models.get(name)
+        if current is None:
+            raise
+        return current[0].score(image, timeout=timeout)
+
+
 def build_healthz(models: dict, meta: Optional[dict]) -> dict:
     if len(models) > 1:
         return {"ok": True, "models": {name: m.get("mode") for name, (_, m) in models.items()}}
@@ -259,13 +374,15 @@ def build_readyz(models: dict, ready_timeout: float) -> Tuple[int, dict]:
 
 
 def build_stats(models: dict, trackers: dict) -> dict:
+    def scores(name: str) -> dict:
+        # .get: a reload may land between the reads of models and trackers
+        tracker = trackers.get(name)
+        return tracker.stats() if tracker is not None else {}
+
     if len(models) > 1:
-        return {
-            name: {**sc.stats(), "scores": trackers[name].stats()}
-            for name, (sc, _) in models.items()
-        }
+        return {name: {**sc.stats(), "scores": scores(name)} for name, (sc, _) in models.items()}
     name, (sc, _) = next(iter(models.items()))
-    return {**sc.stats(), "scores": trackers[name].stats()}
+    return {**sc.stats(), "scores": scores(name)}
 
 
 def heatmap_to_uint8(amap: np.ndarray) -> np.ndarray:
@@ -323,6 +440,8 @@ class AnomalyHTTPServer:
     ``AnomalyHTTPServer(scorer, meta)`` routes ``POST /score``;
     ``models={name: (scorer, meta)}`` adds ``POST /score/<name>``, and
     ``/score`` keeps working while exactly one model is loaded.
+    ``reloader``, () → ({name: (scorer, meta)}, warm-up seconds), enables
+    ``POST /admin/reload``.
     """
 
     def __init__(
@@ -334,11 +453,14 @@ class AnomalyHTTPServer:
         score_timeout: float = 60.0,
         models: Optional[dict] = None,
         ready_timeout: float = 10.0,
+        reloader: Optional[Callable[[], Tuple[dict, float]]] = None,
     ):
         if models is None:
             if scorer is None or meta is None:
                 raise ValueError("pass (scorer, meta) or models={name: (scorer, meta)}")
             models = {meta.get("subject") or "default": (scorer, meta)}
+        self.reloader = reloader
+        self.reload_lock = threading.Lock()
         self.models = dict(models)
         if meta is None and len(self.models) == 1:
             _, meta = next(iter(self.models.values()))
@@ -371,9 +493,20 @@ class AnomalyHTTPServer:
                 self.end_headers()
                 self.wfile.write(body)
 
+            def _text(self, code: int, text: str, ctype: str):
+                body = text.encode("utf-8")
+                self.send_response(code)
+                self.send_header("Content-Type", ctype)
+                self.send_header("Content-Length", str(len(body)))
+                self.end_headers()
+                self.wfile.write(body)
+
             def do_GET(self):
                 path = self.path.partition("?")[0]
-                if path == "/readyz":
+                if path == "/metrics":
+                    self._text(200, prometheus_metrics(outer.models, outer.trackers),
+                               "text/plain; version=0.0.4")
+                elif path == "/readyz":
                     self._json(*build_readyz(outer.models, outer.ready_timeout))
                 elif path == "/healthz":
                     self._json(200, build_healthz(outer.models, outer.meta))
@@ -393,7 +526,13 @@ class AnomalyHTTPServer:
                     return
                 # drain the body before any (error) response
                 body = self.rfile.read(int(self.headers.get("Content-Length", "0")))
-                models = outer.models
+                if path == "/admin/reload":
+                    # synchronous: answers once the new models are loaded,
+                    # warmed and swapped in and the old batchers drained
+                    self._json(*perform_reload(outer))
+                    return
+                # one snapshot per request: a reload replaces both dicts
+                models, trackers = outer.models, outer.trackers
                 if path == "/score":
                     if len(models) > 1:
                         self._json(400, {"error": "several models are loaded; POST "
@@ -420,11 +559,14 @@ class AnomalyHTTPServer:
                     return
                 try:
                     t0 = time.perf_counter()
-                    result = scorer.score(image, timeout=outer.score_timeout)
+                    result = score_with_reload_retry(outer, name, scorer, image,
+                                                     outer.score_timeout)
                     payload, observed = build_score_payload(
                         result, meta, want_heatmap(query), (time.perf_counter() - t0) * 1e3
                     )
-                    outer.trackers[name].observe(observed)
+                    tracker = trackers.get(name)
+                    if tracker is not None:
+                        tracker.observe(observed)
                     self._json(200, payload)
                 except Overloaded as e:
                     self._json(503, {"error": repr(e)})

@@ -180,10 +180,14 @@ _NUMBER = re.compile(r"-?\d+\.\d+(?:e[-+]\d+)?|\bnan\b|\bNaN\b")
 
 
 def table_parts(text: str):
-    """A score table's text → (its text with every number blanked, the
-    numbers in order)."""
+    """A score table's text → (its layout: the text with every number
+    blanked, runs of spaces and of a rule's dashes cut to one; the numbers
+    in order).  The layout keeps the labels, the row and column order and
+    each column's alignment (a Markdown rule's colons), not the widths
+    that the printed digits set: ``g`` prints 0.843100 as ``0.8431`` and
+    0.843108 in full, and the rule under it follows."""
     numbers = [float(m) for m in _NUMBER.findall(text)]
-    return _NUMBER.sub("#", re.sub(r" +", " ", text)), numbers
+    return _NUMBER.sub("#", re.sub(r"-{2,}", "-", re.sub(r" +", " ", text))), numbers
 
 
 def assert_tables_match(port_dir, jax_dir, tol: float):
