@@ -179,10 +179,24 @@ failure; the script exits 0 only when all pass):
    failed or shed request, the reload answered 200, the metrics carry the
    request counters and the drift families, the artifacts' sizes and the
    int8-vs-f32 drift.
-10. Print one JSON line of kernel records (all three kernels, with their
-   launches on the training, evaluation, scorer, localize and serving
-   extras paths), the card line again, and the final {"ok": true,
-   "device": ...} line.
+10. Serve at ``--devices 0`` (one card: one replica) through the native
+   C++ front end.  (a) In process, launch counts reset just before and
+   read just after, every kernel call recorded: phase 9's f32 image and
+   int8 patch artifacts behind ``NativeAnomalyHTTPServer`` with the
+   ``serve`` reloader, ``serve-bench --url`` at 4 clients with /metrics
+   scraped and a reload mid-run, the transport's shed and protocol-error
+   counts 0, every call against its plain version.  (b) ``cli serve
+   --frontend native|stdlib --devices 0`` in a second process per
+   artifact (it must report the front end asked for), ``serve-bench
+   --url`` at 4 and 16 clients for at least 3 s each, 16 seeded images
+   against the in-process scorer within KNN_TOL, SIGTERM → exit 0
+   within 30 s; one ``serving native:`` line with qps, p50 and p95 per
+   artifact, front end and client count, the batches' occupancy and the
+   g++ build time.
+11. Print one JSON line of kernel records (all three kernels, with their
+   launches on the training, evaluation, scorer, localize, serving
+   extras and native serving paths), the card line again, and the final
+   {"ok": true, "device": ...} line.
 """
 
 from __future__ import annotations
@@ -192,6 +206,7 @@ import http.client
 import io
 import json
 import shutil
+import signal
 import subprocess
 import sys
 import tempfile
@@ -237,6 +252,10 @@ MAHA_REL_TOL = 1e-5
 #: serve-bench requests per artifact
 LOCALIZE_IMAGES, TSNE_POINTS, EXTRAS_NORMALITY = 5, 339, 3
 EXTRAS_IMAGE_REQUESTS, EXTRAS_PATCH_REQUESTS = 640, 320
+#: phase 10: the in-process native bench's requests (image, patch), the
+#: second-process benches' client counts, the images checked against the
+#: in-process scorer
+NATIVE_INPROC_REQUESTS, NATIVE_CLIENTS, NATIVE_CHECK_IMAGES = (320, 160), (4, 16), 16
 
 
 def fail(msg: str) -> None:
@@ -673,7 +692,7 @@ def drive_serving_path(device, work: Path):
     if meta["model"]["compute_dtype"] != "bfloat16" or meta["batch"] != BATCH:
         fail(f"artifact header {meta['model']}, batch {meta['batch']}")
 
-    scorer = batcher._fn
+    scorer = batcher._fns[0]
     fit_rows = BANK_ROWS - round(0.3 * BANK_ROWS)  # the 70/30 split: 700
     if tuple(scorer.detector.bank.shape) != (fit_rows, 512):
         fail(f"fitted bank {tuple(scorer.detector.bank.shape)} != ({fit_rows}, 512)")
@@ -825,7 +844,7 @@ def drive_patch_path(device, work: Path, seed: int = 1):
         fail(f"tiled knn launches {launches['knn_cosine_scores_tiled']} < fit + "
              f"{calibration_chunks} calibration chunks + {batches} batches")
 
-    scorer = batcher._fn
+    scorer = batcher._fns[0]
     fit_rows = NORMALITY_IMAGES * WINDOWS - round(0.3 * NORMALITY_IMAGES * WINDOWS)
     if tuple(scorer.detector.bank.shape) != (fit_rows, 512) or meta["knn_impl"] != "cuda_tiled":
         fail(f"patch bank {tuple(scorer.detector.bank.shape)} != ({fit_rows}, 512) or knn_impl "
@@ -1802,7 +1821,7 @@ def drive_wide_patch_path(device, work: Path) -> dict:
                peak_memory_gib=torch.cuda.max_memory_allocated(device) / 2**30,
                http_p50_ms=float(np.percentile(latencies, 50)),
                http_p95_ms=float(np.percentile(latencies, 95)))
-    scorer = batcher._fn
+    scorer = batcher._fns[0]
     # each recorded call against the plain tiled k-NN on its own inputs
     errs = {}
     for q, bank, k, out in calls:
@@ -2074,7 +2093,7 @@ def drive_mahalanobis(device, work: Path) -> dict:
 
     # the served image scores are evaluate's detector's: the same fit (its
     # normality is the bank, ≥ 100 rows), the same scores on one batch
-    scorer = batcher._fn
+    scorer = batcher._fns[0]
     _, det = inf.attach_anomaly_scores(outputs, image_rows, scorer="mahalanobis", seed=0)
     direct, _, _ = scorer(imgs)
     _, emb = scorer.engine.predict_batch(im.normalize_imagenet(torch.from_numpy(imgs).to(device)))
@@ -2224,23 +2243,29 @@ def drive_tsne(device) -> dict:
             "other_centroid_distance": other}
 
 
-def _bench_with_reload(device, artifact: Path, requests: int) -> dict:
-    """A server over ``artifact`` with the ``serve`` reloader; ``cli
+def _bench_with_reload(device, artifact: Path, requests: int, frontend: str = "stdlib",
+                       devices: int = 1) -> dict:
+    """A server over ``artifact`` as ``cli serve --frontend F --devices N``
+    builds it (the product loaders, with the ``serve`` reloader); ``cli
     serve-bench --url`` against it at 4 clients while the main thread
     scrapes /metrics and posts one /admin/reload mid-run: once a quarter
     of the requests are in, answered while the bench still runs, and
-    followed by requests that the reloaded models serve."""
+    followed by requests that the reloaded models serve.  The native
+    front end's transport must shed nothing and see no protocol error."""
     import urllib.request
 
     from ssad_tpu_torch import cli
-    from ssad_tpu_torch.serving.cli import _load_artifact_models
-    from ssad_tpu_torch.serving.server import AnomalyHTTPServer
+    from ssad_tpu_torch.serving.cli import _load_artifact_models, _make_http_server
 
     def load():
-        return _load_artifact_models([str(artifact)], 5.0, 256, device)
+        return _load_artifact_models([str(artifact)], 5.0, 256, device, devices=devices)
 
     models, warmup_s = load()
-    server = AnomalyHTTPServer(models=models, port=0, reloader=load).start()
+    server, got = _make_http_server(frontend, models=models, port=0, reloader=load,
+                                    max_queue=256)
+    if got != frontend:
+        fail(f"{artifact.name}: asked for the {frontend} front end, got {got}")
+    server.start()
     url = f"http://127.0.0.1:{server.port}"
     out = {}
 
@@ -2252,6 +2277,7 @@ def _bench_with_reload(device, artifact: Path, requests: int) -> dict:
                                   "--imsize", str(IMSIZE)])
         out["report"] = json.loads(buf.getvalue().strip().splitlines()[-1])
 
+    transport = None
     try:
         thread = threading.Thread(target=bench)
         thread.start()
@@ -2268,25 +2294,33 @@ def _bench_with_reload(device, artifact: Path, requests: int) -> dict:
             metrics = r.read().decode()
         thread.join(600)
         reload["served_after"] = reloaded.stats()["requests"] - at_reload
+        if frontend == "native":
+            transport = server.transport_stats()
     finally:
         server.stop()
     report = out.get("report") or {}
     if out.get("rc") != 0 or report.get("ok") != requests or report.get("errors") or \
             report.get("shed"):
-        fail(f"serve-bench on {artifact.name}: rc {out.get('rc')}, {report}")
+        fail(f"serve-bench on {artifact.name} ({frontend}): rc {out.get('rc')}, {report}")
     need = ('ssad_requests_total{model="bottle"}', "# TYPE ssad_score_drift_ks gauge",
             "# TYPE ssad_request_latency_ms summary")
     if reload["status"] != 200 or reload["reloaded"] != ["bottle"] or \
             not all(n in metrics for n in need) or not reload["mid_run"] or \
             not reload["running_after"] or reload["served_after"] < 1:
-        fail(f"{artifact.name}: reload {reload}, metrics lines {metrics.splitlines()[:6]}")
+        fail(f"{artifact.name} ({frontend}): reload {reload}, metrics lines "
+             f"{metrics.splitlines()[:6]}")
+    if transport is not None and (transport["shed_transport"] or transport["protocol_errors"]):
+        fail(f"{artifact.name}: the native transport shed or refused requests: {transport}")
     lat = report["latency_ms"]
-    return {"qps": report["qps"], "p50_ms": lat["p50"], "p95_ms": lat["p95"],
-            "requests": requests, "concurrency": 4, "wall_s": report["wall_s"],
-            "reload": reload, "warmup_s": warmup_s,
-            "metrics_lines": len(metrics.splitlines()),
-            "mean_batch_occupancy": (report.get("server_stats") or {}).get(
-                "mean_batch_occupancy")}
+    rec = {"qps": report["qps"], "p50_ms": lat["p50"], "p95_ms": lat["p95"],
+           "requests": requests, "concurrency": 4, "wall_s": report["wall_s"],
+           "reload": reload, "warmup_s": warmup_s, "frontend": frontend, "devices": devices,
+           "metrics_lines": len(metrics.splitlines()),
+           "mean_batch_occupancy": (report.get("server_stats") or {}).get(
+               "mean_batch_occupancy")}
+    if transport is not None:
+        rec["transport"] = transport
+    return rec
 
 
 def drive_serving_extras(device, work: Path) -> dict:
@@ -2360,6 +2394,185 @@ def drive_extras(device, work: Path) -> dict:
     return out
 
 
+@contextlib.contextmanager
+def torch_default_tf32():
+    """PyTorch's own TF32 defaults inside the block (matmuls off, cuDNN
+    on), the settings a ``cli serve`` process runs with."""
+    import torch
+
+    flags = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = False, True
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = flags
+
+
+def start_server_process(artifact: Path, frontend: str, log: Path):
+    """``python -m ssad_tpu_torch.cli serve --artifact A --port 0 --frontend
+    F --devices 0`` from the repository root, its stderr into ``log``."""
+    with open(log, "w") as err:
+        return subprocess.Popen(
+            [sys.executable, "-m", "ssad_tpu_torch.cli", "serve", "--artifact", str(artifact),
+             "--port", "0", "--frontend", frontend, "--devices", "0"],
+            cwd=ROOT, stdout=subprocess.PIPE, stderr=err, text=True)
+
+
+def read_server_line(proc, what: str, timeout_s: float = 300.0) -> dict:
+    """The first JSON line a ``cli serve`` process prints (lines before it,
+    the fallback's WARNING among them, are kept under ``before``)."""
+    box = {"before": []}
+
+    def read():
+        for line in proc.stdout:
+            try:
+                box["info"] = json.loads(line)
+                return
+            except ValueError:
+                box["before"].append(line.rstrip())
+
+    reader = threading.Thread(target=read, daemon=True)
+    reader.start()
+    reader.join(timeout_s)
+    if "info" not in box:
+        fail(f"{what}: no JSON line from `cli serve` in {timeout_s} s "
+             f"(exit {proc.poll()}, printed {box['before']})")
+    return {**box["info"], "before": box["before"]}
+
+
+def _url_bench(url: str, clients: int, min_wall_s: float = 3.0) -> dict:
+    """``cli serve-bench --url`` at ``clients`` closed-loop clients, sized
+    from a 64-request probe run so that it lasts at least ``min_wall_s``."""
+    from ssad_tpu_torch import cli
+
+    def run(n: int) -> dict:
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rc = cli.main(["serve-bench", "--url", url, "--requests", str(n), "--concurrency",
+                           str(clients), "--warmup", "0", "--imsize", str(IMSIZE)])
+        report = json.loads(buf.getvalue().strip().splitlines()[-1])
+        if rc != 0 or report.get("ok") != n or report.get("errors") or report.get("shed"):
+            fail(f"serve-bench --url {url} at {clients} clients: rc {rc}, {report}")
+        return report
+
+    report = run(64)
+    for _ in range(3):
+        report = run(max(64, int(report["qps"] * (min_wall_s + 0.5)) + 1))
+        if report["wall_s"] >= min_wall_s:
+            break
+    stats = report.get("server_stats") or {}
+    return {"qps": report["qps"], "p50_ms": report["latency_ms"]["p50"],
+            "p95_ms": report["latency_ms"]["p95"], "requests": report["ok"],
+            "wall_s": report["wall_s"], "clients": clients,
+            "mean_batch_occupancy": stats.get("mean_batch_occupancy")}
+
+
+def drive_native_serving(device, work: Path) -> dict:
+    """Phase 10: serving through the native C++ front end at ``--devices
+    0``.  (a) In process, every kernel call recorded: phase 9's two
+    artifacts behind ``NativeAnomalyHTTPServer`` with the ``serve``
+    reloader, ``serve-bench --url`` at 4 clients, a reload mid-run.  (b)
+    ``cli serve`` in a second process per artifact and front end: the
+    bench at 4 and 16 clients, 16 seeded images against the in-process
+    scorer, SIGTERM."""
+    import torch
+
+    from ssad_tpu_torch import native
+    from ssad_tpu_torch.serving import native_frontend
+    from ssad_tpu_torch.serving.export import load_scorer
+
+    names = ("image_float32", "patch_int8")
+    frontends = ("native", "stdlib")
+    rec = {"second_process": {}}
+    # the g++ build, timed here before any server process could make it
+    if not native_frontend.available():
+        fail("the native front end's library did not build (g++)")
+    rec["build_s"] = native.build_s.get("ssadhttp")
+    # (b)'s servers load while (a) runs: their start is not what is measured
+    procs = {}
+    try:
+        for name in names:
+            for frontend in frontends:
+                procs[name, frontend] = start_server_process(
+                    work / f"{name}.ssadpt", frontend, work / f"serve_{name}_{frontend}.log")
+        # ---- (a) the native serving path: counts to 0 just before, read just after --
+        _zero_launches()
+        with recording_every_kernel() as calls:
+            rec["in_process"] = {
+                name: _bench_with_reload(device, work / f"{name}.ssadpt", requests,
+                                         frontend="native", devices=0)
+                for name, requests in zip(names, NATIVE_INPROC_REQUESTS)}
+            launches = _eval_launches()
+        # ---- end of the native serving path ----------------------------------------
+        rec["launches"] = launches
+        rec["calls"] = {k: len(v) for k, v in calls.items()}
+        if any(rec["calls"][k] != launches[k] for k in launches):
+            fail(f"native serving: recorded calls {rec['calls']} != launches {launches}")
+        rec["vs_plain"] = held_against_plain(calls, "native serving")
+        del calls
+
+        # ---- (b) the server in a second process ---------------------------------------
+        rng = np.random.default_rng(10)
+        imgs = rng.uniform(size=(NATIVE_CHECK_IMAGES, IMSIZE, IMSIZE, 3)).astype(np.float32)
+        bodies = []
+        for img in imgs:
+            buf = io.BytesIO()
+            np.save(buf, img)
+            bodies.append(buf.getvalue())
+        for name in names:
+            with torch_default_tf32():
+                direct = load_scorer(work / f"{name}.ssadpt", device)(imgs)
+            for frontend in frontends:
+                proc = procs[name, frontend]
+                info = read_server_line(proc, f"serve {name} --frontend {frontend}")
+                if info["frontend"] != frontend or info["devices"] != 0:
+                    fail(f"serve {name} --frontend {frontend}: {info}")
+                url = f"http://127.0.0.1:{info['port']}"
+                out = {"warmup_s": info["warmup_s"]}
+                for clients in NATIVE_CLIENTS:
+                    out[f"c{clients}"] = _url_bench(url, clients)
+                results, _, _ = http_fanout(info["port"], bodies, ["/score"] * len(bodies))
+                if name.startswith("image"):
+                    got = np.array([r["score"] for r in results], np.float32)
+                    want = direct[0]
+                else:
+                    got = np.array([[r["map_max"], r["map_mean"]] for r in results], np.float32)
+                    want = np.stack([direct[0].max(axis=(1, 2)), direct[0].mean(axis=(1, 2))], 1)
+                out["vs_in_process_max_abs"] = float(np.max(np.abs(got - want)))
+                if not out["vs_in_process_max_abs"] <= KNN_TOL:
+                    fail(f"serve {name} --frontend {frontend}: scores vs the in-process "
+                         f"scorer {out['vs_in_process_max_abs']} > {KNN_TOL}")
+                proc.send_signal(signal.SIGTERM)
+                try:
+                    out["exit"] = proc.wait(timeout=30)
+                except subprocess.TimeoutExpired:
+                    fail(f"serve {name} --frontend {frontend} did not exit within 30 s "
+                         "of SIGTERM")
+                if out["exit"] != 0:
+                    fail(f"serve {name} --frontend {frontend} exited {out['exit']} on SIGTERM: "
+                         f"{(work / f'serve_{name}_{frontend}.log').read_text()[-2000:]}")
+                rec["second_process"][f"{name}/{frontend}"] = out
+    finally:
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+            proc.wait()
+            proc.stdout.close()
+    keys = ("qps", "p50_ms", "p95_ms", "mean_batch_occupancy", "requests", "wall_s")
+    line = {
+        "second_process": {key: {**{c: {k: v[c][k] for k in keys}
+                                    for c in (f"c{n}" for n in NATIVE_CLIENTS)},
+                                 **{k: v[k] for k in ("vs_in_process_max_abs", "exit",
+                                                      "warmup_s")}}
+                           for key, v in rec["second_process"].items()},
+        "in_process": {name: {k: v[k] for k in keys + ("transport",)}
+                       for name, v in rec["in_process"].items()},
+        "g++_build_s": rec["build_s"],
+    }
+    print(f"serving native: {json.dumps(line)} ({card_line()})", flush=True)
+    return rec
+
+
 def main() -> int:
     try:
         import torch
@@ -2405,6 +2618,9 @@ def main() -> int:
         evaluation = drive_evaluation(device, work)
         scorers = drive_scorers(device, work)
         extras = drive_extras(device, work)
+        t_native = time.perf_counter()
+        native = drive_native_serving(device, work)
+        print(f"phase 10: {time.perf_counter() - t_native:.1f} s", flush=True)
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
@@ -2467,9 +2683,12 @@ def main() -> int:
         rec["localize_path_vs_plain"] = extras["localize"]["vs_plain"][name]
         rec["serving_extras_path_launches"] = extras["serving"]["launches"][name]
         rec["serving_extras_path_vs_plain"] = extras["serving"]["vs_plain"][name]
+        rec["native_serving_path_launches"] = native["launches"][name]
+        rec["native_serving_path_vs_plain"] = native["vs_plain"][name]
         if (rec["launches"] < 1 or rec.get("train_path_launches", 1) < 1
                 or rec["eval_path_launches"] < 1 or rec["scorer_path_launches"] < 1
                 or rec["serving_extras_path_launches"] < 1
+                or rec["native_serving_path_launches"] < 1
                 or (name != "knn_cosine_scores" and rec["localize_path_launches"] < 1)):
             fail(f"{rec['name']} was not launched on its path")
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -12,8 +12,9 @@ paths are CUDA written for Hopper (csrc/knn.cu, csrc/knn_tiled.cu,
 csrc/stem_pool.cu), built with nvcc at first use.
 
 Package map (so far: the image- and patch-mode serving paths with their
-extras, the pretext synthesizer, two-phase training, evaluation with its
-figures and localization, the other scorers and backbones):
+extras, device replicas and the native front end, the pretext
+synthesizer, two-phase training, evaluation with its figures and
+localization, the other scorers and backbones):
   config, constants  — dataclass configuration (TrainConfig and its JSON
                        form), MVTec taxonomy
   cli                — train, import-ckpt, evaluate, infer, localize, qa;
@@ -36,7 +37,11 @@ figures and localization, the other scorers and backbones):
                        object masks, the CutPaste synthesizer
   serving/           — export artifacts (float32, bfloat16, int8 weights),
                        batching HTTP server (/metrics, /admin/reload),
-                       client, load generator, score drift, CLI
+                       device replicas (``serve --devices``), the native
+                       front end's binding, client, load generator, score
+                       drift, CLI
+  native/            — host C++ built with g++ at first use: the epoll
+                       HTTP transport of ``serve --frontend native``
 """
 
 __version__ = "0.1.0"

@@ -10,8 +10,9 @@ patch artifacts with the k-NN (``--coreset`` too) or Mahalanobis scorer,
 float32, bfloat16 or int8 weights (``--dtype``), ``--validate``,
 ``/admin/reload`` through ``serve``, the load generator against an
 in-process server or a ``--url``, ``score --url`` through
-``ServingClient`` are ported; ``--devices`` replicas and the native front
-end are not (the JAX flags ``--devices`` and ``--frontend`` are absent).
+``ServingClient``, ``--devices`` replicas (serving/replicas.py) and the
+native C++ front end (``--frontend native``, serving/native_frontend.py)
+are ported.
 """
 
 from __future__ import annotations
@@ -96,31 +97,58 @@ def _validate(path, args, device, export) -> dict:
     return validation
 
 
-def _load_artifact_models(paths, max_delay_ms: float, max_queue, device):
+def _load_artifact_models(paths, max_delay_ms: float, max_queue, device, devices: int = 1):
     """Artifact paths → ({name: (BatchingScorer, meta)}, warmup_s).
 
-    Each scorer is warmed THROUGH its batcher before it takes traffic:
-    the batcher's collector thread is the one that runs the scorer, and
-    PyTorch creates cuDNN/cuBLAS handles per thread, so a warmup on the
-    loading thread would leave that first cost to the first request."""
-    import numpy as np
-
-    from ssad_tpu_torch.serving.export import load_scorer, warm_call
+    With ``devices`` other than 1 every model is replicated over that many
+    devices of ``device``'s kind (0 = all; serving/replicas.py), one
+    runner thread each.  Each scorer or replica is warmed on the thread
+    that will run it (``BatchingScorer(warmup=)``: PyTorch creates
+    cuDNN/cuBLAS handles per thread) before the batcher takes traffic,
+    and the warm-up counts no request or batch.  Shared by ``serve`` and
+    ``serve-bench`` so that the benchmarked stack is the served one."""
+    from ssad_tpu_torch.serving.export import load_scorer
+    from ssad_tpu_torch.serving.replicas import device_replicas, pick_devices
     from ssad_tpu_torch.serving.server import BatchingScorer
 
+    devs = None if devices == 1 else pick_devices(devices, device)
     models = {}
     total_warmup = 0.0
     for path in paths:
-        scorer = load_scorer(path, device)
-        name = scorer.meta.get("subject") or Path(path).stem
+        if devs is None:
+            fns = load_scorer(path, device)
+            meta = fns.meta
+        else:
+            fns = device_replicas(path, devs)
+            meta = fns[0].meta
+        name = meta.get("subject") or Path(path).stem
         if name in models:
             raise SystemExit(f"duplicate model name {name!r} ({path})")
-        batcher = BatchingScorer(scorer, batch=scorer.batch, max_delay_ms=max_delay_ms,
-                                 max_queue=max_queue or None)
-        h, w = scorer.meta["imsize"]
-        total_warmup += warm_call(batcher.score, np.zeros((h, w, 3), np.float32))
-        models[name] = (batcher, scorer.meta)
+        batcher = BatchingScorer(fns, batch=int(meta["batch"]), max_delay_ms=max_delay_ms,
+                                 max_queue=max_queue or None, warmup=lambda fn: fn.warmup())
+        total_warmup += batcher.warmup_s
+        models[name] = (batcher, meta)
     return models, total_warmup
+
+
+def _make_http_server(frontend: str, max_queue=None, **kw):
+    """(HTTP server, the front end it is): ``stdlib`` (serving/server.py,
+    ThreadingHTTPServer) or ``native`` (serving/native_frontend.py, the
+    C++ epoll transport), which falls back loudly to stdlib when its
+    library cannot be built here.  ``max_queue`` is the native
+    transport's shed bound (0/None: none); the stdlib front end has no
+    transport bound, its admission control is the batcher's, which both
+    front ends get from ``_load_artifact_models``."""
+    if frontend == "native":
+        from ssad_tpu_torch.serving import native_frontend
+
+        if native_frontend.available():
+            return native_frontend.NativeAnomalyHTTPServer(max_queue=max_queue, **kw), "native"
+        print("WARNING: native front end unavailable (g++/build failed or SSAD_NATIVE=0); "
+              "falling back to the stdlib front end", flush=True)
+    from ssad_tpu_torch.serving.server import AnomalyHTTPServer
+
+    return AnomalyHTTPServer(**kw), "stdlib"
 
 
 def cmd_serve(args) -> int:
@@ -129,35 +157,39 @@ def cmd_serve(args) -> int:
     import signal
     import time
 
-    from ssad_tpu_torch.serving.server import AnomalyHTTPServer
     from ssad_tpu_torch.utils.device import resolve_device
 
     device = resolve_device(args.device)
 
     def load():
-        return _load_artifact_models(args.artifact, args.max_delay_ms, args.max_queue, device)
+        return _load_artifact_models(args.artifact, args.max_delay_ms, args.max_queue, device,
+                                     devices=args.devices)
 
     models, warmup_s = load()
     # POST /admin/reload re-runs the loader: the same paths, re-read (a
     # newer export in their place), warmed, swapped in under traffic
-    server = AnomalyHTTPServer(
-        host=args.host, port=args.port, score_timeout=args.score_timeout, models=models,
-        reloader=load,
+    server, frontend = _make_http_server(
+        args.frontend, host=args.host, port=args.port, score_timeout=args.score_timeout,
+        models=models, reloader=load, max_queue=args.max_queue,
     )
     server.start()
-    print(json.dumps({
-        "host": args.host,
-        "port": server.port,
-        "models": {n: m.get("mode") for n, (_, m) in models.items()},
-        "device": str(device),
-        "warmup_s": round(warmup_s, 2),
-    }), flush=True)
 
     def _sigterm(*_):
         raise KeyboardInterrupt
 
-    signal.signal(signal.SIGTERM, _sigterm)
     try:
+        # before the JSON line: a client that read the port may stop the
+        # server at once
+        signal.signal(signal.SIGTERM, _sigterm)
+        print(json.dumps({
+            "host": args.host,
+            "port": server.port,
+            "frontend": frontend,
+            "models": {n: m.get("mode") for n, (_, m) in models.items()},
+            "device": str(device),
+            "devices": args.devices,
+            "warmup_s": round(warmup_s, 2),
+        }), flush=True)
         while True:
             time.sleep(3600)
     except KeyboardInterrupt:
@@ -175,7 +207,6 @@ def cmd_serve_bench(args) -> int:
     from urllib.parse import urlparse
 
     from ssad_tpu_torch.serving import loadgen
-    from ssad_tpu_torch.serving.server import AnomalyHTTPServer
     from ssad_tpu_torch.utils.device import resolve_device
 
     if bool(args.url) == bool(args.artifact):
@@ -184,9 +215,10 @@ def cmd_serve_bench(args) -> int:
     if args.artifact:
         device = resolve_device(args.device)
         models, _ = _load_artifact_models(args.artifact, args.max_delay_ms, args.max_queue,
-                                          device)
-        server = AnomalyHTTPServer(host="127.0.0.1", port=0, score_timeout=args.score_timeout,
-                                   models=models)
+                                          device, devices=args.devices)
+        server, _ = _make_http_server(args.frontend, host="127.0.0.1", port=0,
+                                      score_timeout=args.score_timeout, models=models,
+                                      max_queue=args.max_queue)
         server.start()
         host, port = "127.0.0.1", server.port
         if args.model and args.model not in models:
@@ -526,6 +558,15 @@ def register(sub) -> None:
                     help="requests beyond this many pending get HTTP 503; 0 disables")
     sv.add_argument("--score-timeout", type=float, default=60.0,
                     help="per-request scoring timeout in seconds")
+    sv.add_argument("--frontend", default="stdlib", choices=["stdlib", "native"],
+                    help="HTTP transport: stdlib ThreadingHTTPServer or the C++ epoll front "
+                         "end (native/http_frontend.cpp; built with g++ at first use, falls "
+                         "back loudly to stdlib when it cannot be)")
+    sv.add_argument("--devices", type=int, default=1,
+                    help="replicate each model over the first N devices of --device's kind, "
+                         "one batch in flight per device (serving/replicas.py); 0 = all "
+                         "devices. Scoring is independent per image, so replicas give "
+                         "one-device latency and throughput that grows with the devices")
     add_device_flag(sv)
     sv.set_defaults(fn=cmd_serve)
 
@@ -554,6 +595,11 @@ def register(sub) -> None:
                     help="admission bound of the in-process server; 0 disables")
     sb.add_argument("--score-timeout", type=float, default=60.0)
     sb.add_argument("--seed", type=int, default=0)
+    sb.add_argument("--frontend", default="stdlib", choices=["stdlib", "native"],
+                    help="HTTP transport of the in-process server (see `serve --frontend`)")
+    sb.add_argument("--devices", type=int, default=1,
+                    help="replicate the in-process server's models over the first N devices "
+                         "(see `serve --devices`); 0 = all")
     add_device_flag(sb)
     sb.set_defaults(fn=cmd_serve_bench)
 

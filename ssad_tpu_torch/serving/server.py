@@ -1,12 +1,13 @@
 """Serving runtime: request batching + a stdlib HTTP front end.
 
-Counterpart of ssad_tpu/serving/server.py:52-812 but the device replicas
-(``serve --devices``) and the native front end's hooks.  The scorer
-runs one fixed batch shape (serving/export.py), so a launch is paid per
-batch: ``BatchingScorer`` is a dynamic batcher — callers submit single
-images from any thread and wait on a future; a collector thread drains
-the queue until the batch fills or ``max_delay_ms`` expires, pads, runs
-the scorer once and fans the rows back out.
+Counterpart of ssad_tpu/serving/server.py:52-812.  The scorer runs one
+fixed batch shape (serving/export.py), so a launch is paid per batch:
+``BatchingScorer`` is a dynamic batcher — callers submit single images
+from any thread and wait on a future; a collector thread drains the
+queue until the batch fills or ``max_delay_ms`` expires, pads, runs the
+scorer once and fans the rows back out.  Over a list of scorers (one per
+device replica, ``serve --devices``; serving/replicas.py) it runs one
+runner thread per scorer, so several batches are in flight at once.
 
 ``AnomalyHTTPServer`` puts a dependency-free HTTP API in front:
 
@@ -32,8 +33,9 @@ the scorer once and fans the rows back out.
                  reloader, 409 while a reload runs, 500 with the old
                  models still serving when loading fails
 
-The JAX server's multi-device replicas and native C++ front end are not
-ported.  Scorer plumbing is callable-agnostic: anything mapping a float32
+The route semantics live in the ``build_*`` helpers below, shared with
+the native C++ front end (serving/native_frontend.py, ``serve
+--frontend native``).  Scorer plumbing is callable-agnostic: anything mapping a float32
 (B, H, W, 3) array to a tuple of per-row arrays serves — a ServedScorer,
 or a test stub.
 """
@@ -70,16 +72,38 @@ class _Request:
 
 
 class BatchingScorer:
-    """Dynamic batcher around one fixed-batch scoring callable."""
+    """Dynamic batcher around one or many fixed-batch scoring callables.
+
+    ``score_fn`` is one callable or a list of them (one per device
+    replica, serving/replicas.py).  One collector thread assembles every
+    batch, so the batching policy stays in one place; with several
+    callables it hands each batch to a run queue bounded at the runner
+    count, drained by one runner thread per callable, so up to that many
+    batches run at once.  When every runner is busy and one batch is
+    staged per runner, assembly blocks and admission pressure surfaces
+    at ``max_queue`` as with one callable.
+
+    ``warmup``, callable → seconds, runs once per callable on the thread
+    that will run that callable (the collector, or its runner) before
+    the constructor returns; PyTorch creates cuDNN/cuBLAS handles per
+    thread, so a warm-up on any other thread would leave that first cost
+    to the first request.  It counts no request or batch; ``warmup_s``
+    is the sum of what it returned, and a warm-up that raises closes
+    the batcher and raises from the constructor.
+    """
 
     def __init__(
         self,
-        score_fn: Callable[[np.ndarray], Sequence[np.ndarray]],
+        score_fn: Callable[[np.ndarray], Sequence[np.ndarray]] | Sequence[Callable],
         batch: int,
         max_delay_ms: float = 5.0,
         max_queue: Optional[int] = 256,
+        warmup: Optional[Callable[[Callable], float]] = None,
     ):
-        self._fn = score_fn
+        fns = list(score_fn) if isinstance(score_fn, (list, tuple)) else [score_fn]
+        if not fns:
+            raise ValueError("need at least one scoring callable")
+        self._fns = fns
         self.batch = int(batch)
         self.max_delay = max_delay_ms / 1e3
         #: admission bound: with this many requests queued, submit()
@@ -91,11 +115,39 @@ class BatchingScorer:
         self._occupancies = collections.deque(maxlen=1024)
         self._n_requests = 0
         self._n_batches = 0
+        self._runner_batches = [0] * len(fns)
         self._closed = False
-        #: how long close() waits for the collector thread
+        #: how long close() waits for the collector and each runner
         self._join_s = 10.0
+        self._warmup = warmup
+        self._warmed = [(threading.Event(), [0.0, None]) for _ in fns]
+        self._run_queue: Optional[queue.Queue] = None
+        self._runners = []
+        if len(fns) > 1:
+            self._run_queue = queue.Queue(maxsize=len(fns))
+            self._runners = [threading.Thread(target=self._runner_loop, args=(i,), daemon=True)
+                             for i in range(len(fns))]
+            for t in self._runners:
+                t.start()
         self._thread = threading.Thread(target=self._loop, daemon=True)
         self._thread.start()
+        for done, _ in self._warmed:
+            done.wait()
+        errors = [err for _, (_, err) in self._warmed if err is not None]
+        if errors:
+            self.close()
+            raise errors[0]
+        self.warmup_s = sum(secs for _, (secs, _) in self._warmed)
+
+    def _warm_this_thread(self, idx: int):
+        done, result = self._warmed[idx]
+        try:
+            if self._warmup is not None:
+                result[0] = float(self._warmup(self._fns[idx]))
+        except Exception as e:  # re-raised by the constructor
+            result[1] = e
+        finally:
+            done.set()
 
     # -- client side ---------------------------------------------------------
 
@@ -121,16 +173,18 @@ class BatchingScorer:
 
     def stats(self) -> dict:
         """Totals are lifetime counters; percentiles and occupancy are
-        over the last ≤1024 requests/batches."""
+        over the last ≤1024 requests/batches.  With several callables
+        also ``replicas`` and ``replica_batches`` (batches per runner)."""
         with self._lock:
             lat = sorted(self._latencies)
             occ = list(self._occupancies)
             n_req, n_bat = self._n_requests, self._n_batches
+            per_runner = list(self._runner_batches)
 
         def pct(p):
             return lat[min(int(p * len(lat)), len(lat) - 1)] * 1e3 if lat else None
 
-        return {
+        out = {
             "requests": n_req,
             "batches": n_bat,
             "mean_batch_occupancy": float(np.mean(occ)) if occ else None,
@@ -139,6 +193,10 @@ class BatchingScorer:
             "queue_depth": self._queue.qsize(),
             "max_queue": self.max_queue,
         }
+        if len(self._fns) > 1:
+            out["replicas"] = len(self._fns)
+            out["replica_batches"] = per_runner
+        return out
 
     def close(self):
         if self._closed:
@@ -148,8 +206,13 @@ class BatchingScorer:
         self._thread.join(timeout=self._join_s)
         if self._thread.is_alive():
             # the collector is inside a long scorer call and has not seen
-            # the sentinel yet; it cancels what is pending when it does
+            # the sentinel yet: draining the queue here could eat it and
+            # strand the collector and every runner.  When it unblocks it
+            # consumes the sentinel, stops the runners and cancels what
+            # is pending itself (_loop)
             return
+        for t in self._runners:
+            t.join(timeout=self._join_s)
         # requests that raced past the _closed check may sit behind the
         # sentinel — fail them now instead of at their timeout
         self._cancel_pending()
@@ -167,9 +230,12 @@ class BatchingScorer:
     # -- collector thread ----------------------------------------------------
 
     def _loop(self):
+        if self._run_queue is None:
+            self._warm_this_thread(0)
         while True:
             req = self._queue.get()
             if req is None:
+                self._stop_runners()
                 self._cancel_pending()
                 return
             reqs = [req]
@@ -183,29 +249,55 @@ class BatchingScorer:
                 except queue.Empty:
                     break
                 if nxt is None:
-                    self._run(reqs)
+                    self._dispatch(reqs)
+                    self._stop_runners()
                     self._cancel_pending()
                     return
                 reqs.append(nxt)
-            self._run(reqs)
+            self._dispatch(reqs)
 
-    def _run(self, reqs):
+    def _dispatch(self, reqs):
+        if self._run_queue is None:
+            self._run(reqs, 0)
+        else:
+            # blocks while every runner is busy and one batch is staged
+            # per runner: backpressure reaches max_queue
+            self._run_queue.put(reqs)
+
+    def _stop_runners(self):
+        # runners drain FIFO: every staged batch runs before its runner
+        # sees the sentinel
+        for _ in self._runners:
+            self._run_queue.put(None)
+
+    # -- runner threads (several callables) ------------------------------------
+
+    def _runner_loop(self, idx: int):
+        self._warm_this_thread(idx)
+        while True:
+            reqs = self._run_queue.get()
+            if reqs is None:
+                return
+            self._run(reqs, idx)
+
+    def _run(self, reqs, idx: int):
         n = len(reqs)
         try:
             x = np.stack([r.image for r in reqs])
             if n < self.batch:
                 x = np.pad(x, ((0, self.batch - n),) + ((0, 0),) * 3)
-            results = tuple(np.asarray(r) for r in self._fn(x))
+            results = tuple(np.asarray(r) for r in self._fns[idx](x))
             now = time.perf_counter()
             with self._lock:
                 self._occupancies.append(n / self.batch)
                 self._latencies.extend(now - r.t_submit for r in reqs)
                 self._n_batches += 1
                 self._n_requests += n
+                self._runner_batches[idx] += 1
             for i, r in enumerate(reqs):
                 r.result = tuple(res[i : i + 1] for res in results)
                 r.event.set()
-        except Exception as e:  # the collector must keep running: fail the batch
+        except Exception as e:  # the thread must keep running: fail this batch only
             for r in reqs:
                 r.error = e
                 r.event.set()

@@ -145,24 +145,29 @@ def _nchw(a):
 
 
 def jax_decisions(inter):
-    """The JAX PeraNet/ResNet-18 train forward's pre-activations, in the
-    order the port's forward applies its ReLUs: the stem's BatchNorm, then
-    per block bn1 and bn2 + shortcut (the residual sum, recomputed in f32
-    from the captured addends, which is the same IEEE add), then the latent
-    MLP's BatchNorms; and the stem max-pool's input."""
+    """The JAX PeraNet train forward's pre-activations, in the order the
+    port's forward applies its ReLUs: the stem's BatchNorm, then per block
+    bn1 and bn2 + shortcut (a basic block) or bn1, bn2 and bn3 + shortcut
+    (a bottleneck block; the residual sum recomputed in f32 from the
+    captured addends, which is the same IEEE add), then the latent MLP's
+    BatchNorms; and the stem max-pool's input.  Any stage depths."""
     bb = inter["backbone"]
     stem = _nchw(bb["bn1"]["__call__"][0])
     relus = [("stem", stem)]
     prev = F.max_pool2d(F.relu(stem), 3, 2, 1)  # the max is exact
     for stage in range(1, 5):
-        for b in range(2):
+        b = 0
+        while f"layer{stage}_{b}" in bb:
             blk = bb[f"layer{stage}_{b}"]
-            relus.append((f"layer{stage}.{b}.bn1", _nchw(blk["bn1"]["__call__"][0])))
+            inner, last = (("bn1", "bn2"), "bn3") if "bn3" in blk else (("bn1",), "bn2")
+            for bn in inner:
+                relus.append((f"layer{stage}.{b}.{bn}", _nchw(blk[bn]["__call__"][0])))
             short = (_nchw(blk["downsample_bn"]["__call__"][0]) if "downsample_bn" in blk
                      else prev)
-            relus.append((f"layer{stage}.{b}.sum", _nchw(blk["bn2"]["__call__"][0]) + short))
+            relus.append((f"layer{stage}.{b}.sum", _nchw(blk[last]["__call__"][0]) + short))
             prev = _nchw(blk["__call__"][0])
             assert torch.equal(prev, F.relu(relus[-1][1])), relus[-1][0]
+            b += 1
     i = 0
     while f"latent_{i}_bn" in inter:
         relus.append((f"latent.{i}", torch.tensor(np.asarray(inter[f"latent_{i}_bn"]["__call__"][0]))))
@@ -299,15 +304,19 @@ def step_margins(tr, metrics, state, j_new, j_loss, j_logits, j_grads, stage, pi
     return margins
 
 
-def beyond(margins):
-    """The keys of ``margins`` beyond their limits."""
-    limits = {"loss": LOSS_TOL, "logits": LOGIT_TOL, "grad_rel": GRAD_TOL, "params": PARAM_TOL,
-              "bank": BANK_TOL, "flips": MAX_FLIPS, "band": BAND_FACTOR}
-    return [k for k, tol in limits.items() if k in margins and not margins[k] <= tol]
+#: the limits of ``beyond``: CPU_LIMITS and the decision limits
+LIMITS = {"loss": LOSS_TOL, "logits": LOGIT_TOL, "grad_rel": GRAD_TOL, "params": PARAM_TOL,
+          "bank": BANK_TOL, "flips": MAX_FLIPS, "band": BAND_FACTOR}
 
 
-def check_step(tr, metrics, state, j_new, j_loss, j_logits, j_grads, stage, pin=None):
+def beyond(margins, limits=None):
+    """The keys of ``margins`` beyond their limits (``LIMITS`` unless given)."""
+    return [k for k, tol in (limits or LIMITS).items() if k in margins and not margins[k] <= tol]
+
+
+def check_step(tr, metrics, state, j_new, j_loss, j_logits, j_grads, stage, pin=None,
+               limits=None):
     margins = step_margins(tr, metrics, state, j_new, j_loss, j_logits, j_grads, stage, pin)
-    assert not beyond(margins), margins
+    assert not beyond(margins, limits), margins
     assert int(j_new.bank.count) > 0
     return margins
