@@ -193,10 +193,29 @@ failure; the script exits 0 only when all pass):
    within 30 s; one ``serving native:`` line with qps, p50 and p95 per
    artifact, front end and client count, the batches' occupancy and the
    g++ build time.
-11. Print one JSON line of kernel records (all three kernels, with their
+11. The harness.  (a) ``cli doctor`` in a second process: exit 0, backend
+   ``cuda`` with at least one device, ``_build/`` writable; the whole line
+   is printed, ``native_loader.available`` (whether the card machine built
+   the threaded PNG/JPEG loader) with it.  (b) ``cli profile --what
+   patch`` (256², batch 8: windows → stem → PeraNet → the resident k-NN on
+   a seeded 1,000-row bank) and ``--what train`` (phase 5's bottle tree,
+   256², batch 96, bf16, the fine-tune step with the fill), 10 steps each
+   under PyTorch's default TF32 flags; each must write a non-empty trace.
+   (c) ``cli parity`` at its defaults: the synthetic trio (carpet, bottle,
+   hazelnut), 256², batch 96, ResNet-18, bf16, 5 + 15 epochs, both modes,
+   patch 32/stride 8, seed 0; one ``parity:`` line with each subject's and
+   the mean image AUROC/F1 and pixel AUROC/IoU/AUPRO beside the JAX
+   package's committed numbers on the same trio, and the train and
+   evaluate seconds of each mode; it fails below a mean image AUROC of
+   0.80 or a mean pixel AUROC of 0.90.  Launch counts are reset just
+   before (b) and (c) and read just after each; every kernel call of both
+   is recorded and held against its plain version (k-NN 1e-5, the stem at
+   phase 2's tolerance).
+12. Print one JSON line of kernel records (all three kernels, with their
    launches on the training, evaluation, scorer, localize, serving
-   extras and native serving paths), the card line again, and the final
-   {"ok": true, "device": ...} line.
+   extras, native serving, profile and parity paths), the script's
+   seconds, the card line again, and the final {"ok": true, "device":
+   ...} line.
 """
 
 from __future__ import annotations
@@ -256,6 +275,27 @@ EXTRAS_IMAGE_REQUESTS, EXTRAS_PATCH_REQUESTS = 640, 320
 #: second-process benches' client counts, the images checked against the
 #: in-process scorer
 NATIVE_INPROC_REQUESTS, NATIVE_CLIENTS, NATIVE_CHECK_IMAGES = (320, 160), (4, 16), 16
+#: phase 11: ``cli profile`` steps and patch batch; the floors of ``cli
+#: parity``'s means that only a broken pipeline misses (chance is 0.5)
+PROFILE_STEPS, PROFILE_BATCH = 10, 8
+PARITY_IMAGE_AUROC_FLOOR, PARITY_PIXEL_AUROC_FLOOR = 0.80, 0.90
+#: the JAX package's accuracy on the same synthetic trio at the same
+#: defaults (256², batch 96, ResNet-18, 5 + 15 epochs, seed 0), copied from
+#: outputs/parity/parity_summary.json (accuracy only: no time of it is used)
+JAX_TRIO_SOURCE = "outputs/parity/parity_summary.json"
+JAX_TRIO = {
+    "carpet": {"image_auroc": 1.0, "image_f1": 1.0, "pixel_auroc": 0.9918205738067627,
+               "iou": 0.6129595637321472, "aupro": 0.9725207090377808},
+    "bottle": {"image_auroc": 0.93, "image_f1": 0.8888888888888888,
+               "pixel_auroc": 0.9890516996383667, "iou": 0.5885282158851624,
+               "aupro": 0.9661177396774292},
+    "hazelnut": {"image_auroc": 0.9500000000000001, "image_f1": 0.9,
+                 "pixel_auroc": 0.9780007004737854, "iou": 0.5699502229690552,
+                 "aupro": 0.9445184469223022},
+}
+JAX_TRIO_MEAN = {"image_auroc": 0.9600000000000001, "image_f1": 0.9296296296296296,
+                 "pixel_auroc": 0.9862909913063049, "iou": 0.590479334195455,
+                 "aupro": 0.9610522985458374}
 
 
 def fail(msg: str) -> None:
@@ -2573,7 +2613,143 @@ def drive_native_serving(device, work: Path) -> dict:
     return rec
 
 
+def drive_doctor() -> dict:
+    """Phase 11a: ``cli doctor`` in a second process (its device probe in a
+    third): exit 0 on the card, the build directory writable."""
+    proc = subprocess.run([sys.executable, "-m", "ssad_tpu_torch.cli", "doctor"], cwd=ROOT,
+                          capture_output=True, text=True, timeout=300)
+    try:
+        report = json.loads(proc.stdout.strip().splitlines()[-1])
+    except (IndexError, json.JSONDecodeError):
+        fail(f"cli doctor printed no JSON line (exit {proc.returncode}): {proc.stderr[-2000:]}")
+    print(f"doctor: {json.dumps(report)} ({card_line()})", flush=True)
+    backend = report.get("backend", {})
+    if proc.returncode != 0 or not report.get("ok") or backend.get("platform") != "cuda" \
+            or backend.get("n_devices", 0) < 1 or not report["compile_cache"]["writable"]:
+        fail(f"cli doctor: exit {proc.returncode}, {report}")
+    return report
+
+
+def drive_profile(work: Path) -> dict:
+    """Phase 11b: ``cli profile --what patch`` (256², batch 8: the stem and
+    the resident k-NN on a 1,000-row bank) and ``--what train`` (phase 5's
+    bottle tree, 256², batch 96, bf16, the fine-tune step with the fill),
+    each PROFILE_STEPS steps, under PyTorch's default TF32 flags (a CLI
+    process's); launch counts reset just before and read just after, every
+    kernel call recorded and held against its plain version."""
+    root = work / "synth_mvtec"
+    runs = {}
+    # ---- the profile path: counts to 0 just before, read just after ---------
+    _zero_launches()
+    with recording_every_kernel() as calls, torch_default_tf32():
+        for what, flags in (("patch", ["--profile-batch", str(PROFILE_BATCH)]),
+                            ("train", ["--batch-size", str(TRAIN_BATCH)])):
+            before = _eval_launches()
+            lines, wall = _run_cli(["profile", "--what", what, "--dataset-dir", str(root),
+                                    "--subject", "bottle", "--imsize", str(IMSIZE),
+                                    "--steps", str(PROFILE_STEPS), "--profile-dir",
+                                    str(work / f"profile_{what}")] + flags)
+            after = _eval_launches()
+            runs[what] = {**json.loads(lines[-1]), "wall_s": wall,
+                          "launches": {k: after[k] - before[k] for k in after}}
+        launches = _eval_launches()
+    # ---- end of the profile path ---------------------------------------------
+    for what, run in runs.items():
+        traces = list((work / f"profile_{what}").glob("*.pt.trace.json"))
+        run["trace_bytes"] = sum(t.stat().st_size for t in traces)
+        if run["steps"] != PROFILE_STEPS or not traces or run["trace_bytes"] == 0:
+            fail(f"profile --what {what}: {run['steps']} steps, traces {traces}")
+        print(f"profile {what}: {json.dumps(run)} ({card_line()})", flush=True)
+    rec = {"runs": runs, "launches": launches, "calls": {k: len(v) for k, v in calls.items()},
+           "vs_plain": held_against_plain(calls, "profile")}
+    if any(rec["calls"][k] != launches[k] for k in launches):
+        fail(f"profile: recorded calls {rec['calls']} != launches {launches}")
+    if runs["patch"]["launches"]["stem_pool"] < PROFILE_STEPS + 1 or \
+            runs["patch"]["launches"]["knn_cosine_scores"] < PROFILE_STEPS + 1:
+        fail(f"profile --what patch launches {runs['patch']['launches']}")
+    return rec
+
+
+def drive_parity(work: Path) -> dict:
+    """Phase 11c: ``cli parity`` at its defaults (the synthetic trio,
+    256², batch 96, bf16, ResNet-18, 5 + 15 epochs, both modes, patch
+    32/stride 8, seed 0) under PyTorch's default TF32 flags; launch counts
+    reset just before and read just after, every kernel call recorded and
+    held against its plain version; train and evaluate seconds per mode;
+    the accuracy beside the JAX package's on the same trio, held to
+    floors only a broken pipeline misses."""
+    import torch
+
+    from ssad_tpu_torch import parity
+    from ssad_tpu_torch.evaluation import evaluator
+
+    seconds = {"image": {"train_s": 0.0, "evaluate_s": 0.0},
+               "patch": {"train_s": 0.0, "evaluate_s": 0.0}}
+    train, evaluate = parity._train_subject, evaluator.evaluate_categories
+
+    def timed(fn, key, mode_of):
+        def wrapper(*args, **kw):
+            t0 = time.perf_counter()
+            out = fn(*args, **kw)
+            torch.cuda.synchronize()
+            seconds[mode_of(args)][key] += time.perf_counter() - t0
+            return out
+        return wrapper
+
+    parity._train_subject = timed(
+        train, "train_s", lambda a: "patch" if a[0].data.patch_localization else "image")
+    evaluator.evaluate_categories = timed(
+        evaluate, "evaluate_s", lambda a: "patch" if a[3].patch_localization else "image")
+    out = work / "parity"
+    try:
+        # ---- the parity path: counts to 0 just before, read just after ------
+        _zero_launches()
+        with recording_every_kernel() as calls, torch_default_tf32():
+            _, wall = _run_cli(["parity", "--outputs-dir", str(out)])
+            launches = _eval_launches()
+        # ---- end of the parity path ------------------------------------------
+    finally:
+        parity._train_subject, evaluator.evaluate_categories = train, evaluate
+    summary = json.loads((out / "parity_summary.json").read_text())
+    rows = {s: {**summary["image"]["per_subject"][s], **summary["patch"]["per_subject"][s]}
+            for s in parity.SYNTHETIC_SUBJECTS}
+    mean = {k: v for mode in ("image", "patch") for k, v in summary[mode].items()
+            if k not in ("reference", "per_subject")}
+    rec = {
+        "subjects": rows, "mean": mean,
+        "jax_trio": {"source": JAX_TRIO_SOURCE, "subjects": JAX_TRIO, "mean": JAX_TRIO_MEAN},
+        "gap_to_jax": {s: {k: rows[s][k] - JAX_TRIO[s][k] for k in rows[s]} for s in rows},
+        "mean_gap_to_jax": {k: mean[k] - JAX_TRIO_MEAN[k] for k in mean},
+        "seconds": seconds, "wall_s": wall,
+        "floors": {"image_auroc": PARITY_IMAGE_AUROC_FLOOR,
+                   "pixel_auroc": PARITY_PIXEL_AUROC_FLOOR},
+        "tables": sorted(str(p.relative_to(out)) for p in out.glob("*_level/tables/*/*")),
+        "launches": launches, "calls": {k: len(v) for k, v in calls.items()},
+        "vs_plain": held_against_plain(calls, "parity"),
+    }
+    print(f"parity: {json.dumps(rec)} ({card_line()})", flush=True)
+    if any(rec["calls"][k] != launches[k] for k in launches):
+        fail(f"parity: recorded calls {rec['calls']} != launches {launches}")
+    if not len(rec["tables"]) >= 2 * 3 * 3:  # {image,patch} × {all,textures,objects} × 3 formats
+        fail(f"parity: tables {rec['tables']}")
+    if not all(v > 0 for mode in seconds.values() for v in mode.values()):
+        fail(f"parity: a timed stage never ran through its wrapper: {seconds}")
+    if not (mean["image_auroc"] >= PARITY_IMAGE_AUROC_FLOOR
+            and mean["pixel_auroc"] >= PARITY_PIXEL_AUROC_FLOOR):
+        fail(f"parity: mean image AUROC {mean['image_auroc']} (floor "
+             f"{PARITY_IMAGE_AUROC_FLOOR}), pixel AUROC {mean['pixel_auroc']} (floor "
+             f"{PARITY_PIXEL_AUROC_FLOOR})")
+    return rec
+
+
+def drive_harness(work: Path) -> dict:
+    """Phase 11: ``cli doctor``, ``cli profile``, ``cli parity``."""
+    return {"doctor": drive_doctor(), "profile": drive_profile(work),
+            "parity": drive_parity(work)}
+
+
 def main() -> int:
+    t_start = time.perf_counter()
     try:
         import torch
     except ImportError as e:
@@ -2621,6 +2797,9 @@ def main() -> int:
         t_native = time.perf_counter()
         native = drive_native_serving(device, work)
         print(f"phase 10: {time.perf_counter() - t_native:.1f} s", flush=True)
+        t_harness = time.perf_counter()
+        harness = drive_harness(work)
+        print(f"phase 11: {time.perf_counter() - t_harness:.1f} s", flush=True)
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
@@ -2685,13 +2864,20 @@ def main() -> int:
         rec["serving_extras_path_vs_plain"] = extras["serving"]["vs_plain"][name]
         rec["native_serving_path_launches"] = native["launches"][name]
         rec["native_serving_path_vs_plain"] = native["vs_plain"][name]
+        rec["parity_path_launches"] = harness["parity"]["launches"][name]
+        rec["parity_path_vs_plain"] = harness["parity"]["vs_plain"][name]
+        if name != "knn_cosine_scores_tiled":  # patch scoring on a 1,000-row bank: resident
+            rec["profile_path_launches"] = harness["profile"]["launches"][name]
+            rec["profile_path_vs_plain"] = harness["profile"]["vs_plain"][name]
         if (rec["launches"] < 1 or rec.get("train_path_launches", 1) < 1
+                or rec["parity_path_launches"] < 1 or rec.get("profile_path_launches", 1) < 1
                 or rec["eval_path_launches"] < 1 or rec["scorer_path_launches"] < 1
                 or rec["serving_extras_path_launches"] < 1
                 or rec["native_serving_path_launches"] < 1
                 or (name != "knn_cosine_scores" and rec["localize_path_launches"] < 1)):
             fail(f"{rec['name']} was not launched on its path")
     print(json.dumps({"kernels": kernels}), flush=True)
+    print(f"total: {time.perf_counter() - t_start:.1f} s", flush=True)
     print(card_line(), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

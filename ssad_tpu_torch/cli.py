@@ -1,13 +1,15 @@
 """Command line: ``python -m ssad_tpu_torch.cli train|import-ckpt|evaluate|
-infer|localize|export|serve|serve-bench|score|evaluate-artifact|qa``.
+infer|localize|export|serve|serve-bench|score|evaluate-artifact|qa|parity|
+profile|doctor``.
 
 Counterpart of ssad_tpu/cli.py for the commands ported so far (the
 serving subcommands live in serving/cli.py, as in the JAX package).
 Each takes the JAX command's flags with ``--device`` in place of
-``--platform``.  ``train --data-shards`` is not ported; ``evaluate`` and
-``infer`` take ``--data-shards``/``--category-shards`` above 1 (slice 9)
-and refuse them.  Checkpoints are ``<models-dir>/<subject>/best_model.ckpt``
-(``train``, ``import-ckpt``).
+``--platform``.  ``train --data-shards``, ``sweep`` and ``train-multi`` are
+not ported; ``evaluate`` and ``infer`` take ``--data-shards``/
+``--category-shards`` above 1 (slice 9b) and refuse them.  Checkpoints
+are ``<models-dir>/<subject>/best_model.ckpt`` (``train``,
+``import-ckpt``).
 """
 
 from __future__ import annotations
@@ -15,6 +17,7 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import json
+import os
 import sys
 from pathlib import Path
 
@@ -35,7 +38,8 @@ def _train_cfg(args) -> TrainConfig:
             dataset_dir=args.dataset_dir, subject=args.subject,
             imsize=(args.imsize, args.imsize), batch_size=args.batch_size, seed=args.seed,
             patch_localization=args.patch_level, patch_size=args.patch_size,
-            min_dataset_length=args.min_dataset_length,
+            min_dataset_length=getattr(args, "min_dataset_length",
+                                       DataConfig().min_dataset_length),
         ),
         model=ModelConfig(backbone=args.backbone, pretrained_backbone=args.pretrained_backbone),
         optim=OptimConfig(
@@ -265,6 +269,181 @@ def cmd_qa(args) -> int:
     return 0
 
 
+def _backend_probe(device) -> str:
+    """The doctor's device probe, run as ``python -c``: resolves ``device``
+    as the entry points do, runs one op there and prints one JSON line."""
+    root = str(Path(__file__).resolve().parent.parent)
+    return (
+        f"import json, sys; sys.path.insert(0, {root!r})\n"
+        "import torch\n"
+        "from ssad_tpu_torch.utils.device import resolve_device\n"
+        f"dev = resolve_device({device!r})\n"
+        "torch.ones(8, device=dev).sum().item()\n"
+        "cuda = dev.type == 'cuda'\n"
+        "print(json.dumps({'platform': dev.type,"
+        " 'device_kind': torch.cuda.get_device_name(dev) if cuda else 'cpu',"
+        " 'n_devices': torch.cuda.device_count() if cuda else 1}))\n"
+    )
+
+
+def cmd_doctor(args) -> int:
+    """Environment self-check, printed as one JSON line; exit 0 iff the
+    device was reached and the kernel build directory is writable.
+
+    The device probe runs in a subprocess with a timeout, so a device
+    that hangs on its first call cannot hang the doctor.  The build
+    directory ``ssad_tpu_torch/_build/`` takes the place of the JAX
+    package's compile cache: the CUDA kernels (with nvcc, whose path is
+    reported) and the native libraries are compiled there at first use.
+    ``native_loader.available`` says whether the threaded PNG/JPEG loader
+    was built; without it data/mvtec.py decodes with PIL."""
+    import subprocess
+
+    import torch
+
+    from ssad_tpu_torch import native
+    from ssad_tpu_torch.ops import _cuda
+
+    report = {"python": sys.version.split()[0], "torch": torch.__version__}
+    try:
+        out = subprocess.run(
+            [sys.executable, "-c", _backend_probe(args.device)], capture_output=True,
+            text=True, timeout=args.probe_timeout,
+        )
+        if out.returncode == 0:
+            report["backend"] = json.loads(out.stdout.strip().splitlines()[-1])
+        else:
+            report["backend"] = {"error": (out.stderr or "").strip().splitlines()[-1:]}
+    except subprocess.TimeoutExpired:
+        report["backend"] = {
+            "error": f"unreachable: the device probe hung >{args.probe_timeout}s"
+        }
+
+    cache = _cuda.BUILD_DIR
+    try:
+        nvcc = _cuda.nvcc_path()
+    except _cuda.KernelBuildError:
+        nvcc = None
+    try:
+        cache.mkdir(parents=True, exist_ok=True)
+        probe_file = cache / f".doctor_probe.{os.getpid()}"
+        probe_file.write_text("ok")
+        probe_file.unlink()
+        report["compile_cache"] = {"dir": str(cache), "writable": True, "nvcc": nvcc}
+    except OSError as e:
+        report["compile_cache"] = {"dir": str(cache), "writable": False, "nvcc": nvcc,
+                                   "error": repr(e)}
+
+    try:
+        report["native_loader"] = {"available": bool(native.available())}
+    except Exception as e:  # a broken build must not hide the rest of the report
+        report["native_loader"] = {"available": False, "error": repr(e)}
+
+    ok = (
+        isinstance(report.get("backend"), dict)
+        and "error" not in report["backend"]
+        and report["compile_cache"]["writable"]
+    )
+    report["ok"] = bool(ok)
+    print(json.dumps(report))
+    return 0 if ok else 1
+
+
+def cmd_profile(args) -> int:
+    """Trace a hot program with torch.profiler into --profile-dir: the
+    fine-tune train step with the bank fill (--what train), or patch
+    scoring (--what patch: windows → fused stem → PeraNet → resident k-NN
+    → blurred, upsampled maps, random weights and a seeded 1,000-row
+    bank; timing does not depend on the weights).  One warm-up step
+    outside the timer, then --steps steps; prints one JSON line with the
+    trace directory, the StepTimer summary and the card's memory."""
+    import numpy as np
+    import torch
+
+    from ssad_tpu_torch.utils import profiling
+    from ssad_tpu_torch.utils.device import resolve_device
+
+    device = resolve_device(args.device)
+    cfg = _train_cfg(args)
+
+    if args.what == "patch":
+        from ssad_tpu_torch.evaluation.inference import InferenceEngine
+        from ssad_tpu_torch.models.peranet import build_model, init_model
+
+        h, _ = cfg.data.imsize
+        bs = args.profile_batch
+        model = init_model(build_model(cfg.model), torch.Generator().manual_seed(cfg.seed))
+        engine = InferenceEngine(model, device)
+        rng = np.random.default_rng(cfg.seed)
+        bank = torch.from_numpy(rng.random((1000, 512), dtype=np.float32)).to(device)
+        x = torch.from_numpy(rng.random((bs, h, h, 3), dtype=np.float32)).to(device)
+
+        def run():
+            return engine.score_patch_maps(x, bank, dim=args.patch_dim, stride=args.stride,
+                                           upsample_to=h)
+
+        profiling.block_until_ready(run())  # warm-up, outside the timer
+        timer = profiling.StepTimer(items_per_step=bs)
+        with profiling.trace(args.profile_dir):
+            for _ in range(args.steps):
+                timer.start()
+                maps = run()
+                timer.stop(sync=maps)
+    else:
+        from ssad_tpu_torch.data import mvtec
+        from ssad_tpu_torch.train.trainer import Trainer, stage_generator
+
+        data = mvtec.prepare_pretext_data(
+            cfg.data.dataset_dir, cfg.data.subject, imsize=cfg.data.imsize,
+            patch_localization=cfg.data.patch_localization,
+        )
+        trainer = Trainer(cfg, data, device)
+        state = trainer.init_state("fine_tune", seed=cfg.seed)
+        tr = trainer.device_data("train")
+        gen = stage_generator(cfg.seed, 2)
+        state, m = trainer.train_step(state, trainer.upload_draws(gen, tr), tr, True)
+        profiling.block_until_ready(m["loss"])  # warm-up, outside the timer
+        timer = profiling.StepTimer(items_per_step=cfg.data.batch_size)
+        with profiling.trace(args.profile_dir):
+            for _ in range(args.steps):
+                timer.start()
+                state, m = trainer.train_step(state, trainer.upload_draws(gen, tr), tr, True)
+                timer.stop(sync=m["loss"])
+    print(json.dumps({
+        "trace_dir": args.profile_dir,
+        **timer.summary(),
+        "memory": profiling.device_memory_stats(),
+    }))
+    return 0
+
+
+def cmd_parity(args) -> int:
+    """End-to-end accuracy-parity run (ssad_tpu_torch/parity.py)."""
+    from ssad_tpu_torch.parity import run_parity
+
+    subjects = None
+    if args.subjects and args.subjects != "default":
+        subjects = _subjects(args)
+    run_parity(
+        dataset_dir=args.dataset_dir,
+        outputs_dir=args.outputs_dir,
+        subjects=subjects,
+        imsize=args.imsize,
+        batch_size=args.batch_size,
+        projection_epochs=args.projection_epochs,
+        fine_tune_epochs=args.fine_tune_epochs,
+        pretrained_backbone=args.pretrained_backbone,
+        backbone=args.backbone,
+        patch_dim=args.patch_dim,
+        stride=args.stride,
+        modes=[m.strip() for m in args.modes.split(",") if m.strip()],
+        seed=args.seed,
+        verbose=not args.quiet,
+        device=args.device,
+    )
+    return 0
+
+
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="ssad_tpu_torch",
@@ -389,6 +568,65 @@ def build_parser() -> argparse.ArgumentParser:
     q.add_argument("--patch-size", type=int, default=DataConfig().patch_size)
     serving_cli.add_device_flag(q)
     q.set_defaults(fn=cmd_qa)
+
+    pr = sub.add_parser("profile", help="trace the fine-tune train step or patch scoring "
+                                        "with torch.profiler")
+    pr.add_argument("--dataset-dir", required=True)
+    pr.add_argument("--outputs-dir", default="outputs")
+    pr.add_argument("--subject", required=True)
+    pr.add_argument("--imsize", type=int, default=data_cfg.imsize[0])
+    pr.add_argument("--seed", type=int, default=0)
+    pr.add_argument("--patch-level", action="store_true")
+    pr.add_argument("--patch-dim", type=int, default=eval_cfg.patch_dim)
+    pr.add_argument("--patch-size", type=int, default=data_cfg.patch_size)
+    pr.add_argument("--stride", type=int, default=eval_cfg.stride)
+    pr.add_argument("--batch-size", type=int, default=data_cfg.batch_size)
+    pr.add_argument("--profile-dir", required=True)
+    pr.add_argument("--steps", type=int, default=5)
+    pr.add_argument("--what", default="train", choices=["train", "patch"],
+                    help="program to trace: the fine-tune train step, or patch scoring "
+                         "(random weights and bank at the served geometry)")
+    pr.add_argument("--profile-batch", type=int, default=8, help="image batch for --what patch")
+    pr.add_argument("--projection-epochs", type=int, default=10)
+    pr.add_argument("--projection-lr", type=float, default=optim_cfg.projection_lr)
+    pr.add_argument("--fine-tune-epochs", type=int, default=30)
+    pr.add_argument("--fine-tune-lr", type=float, default=optim_cfg.fine_tune_lr)
+    pr.add_argument("--backbone", default="resnet18",
+                    choices=["resnet18", "resnet34", "resnet50", "wide_resnet50_2"])
+    pr.add_argument("--pretrained-backbone", default=None)
+    serving_cli.add_device_flag(pr)
+    pr.set_defaults(fn=cmd_profile)
+
+    dr = sub.add_parser("doctor", help="environment self-check (hang-proof device probe, "
+                                       "kernel build directory, native loader); exit 0 "
+                                       "iff healthy")
+    dr.add_argument("--probe-timeout", type=float, default=60.0,
+                    help="seconds before the device is declared unreachable")
+    serving_cli.add_device_flag(dr)
+    dr.set_defaults(fn=cmd_doctor)
+
+    pa = sub.add_parser("parity", help="end-to-end accuracy-parity run (synthetic "
+                                       "3-category dataset by default; --dataset-dir runs "
+                                       "the real MVTec sweep)")
+    pa.add_argument("--dataset-dir", default=None,
+                    help="MVTec root; omit to generate the synthetic dataset")
+    pa.add_argument("--outputs-dir", default="outputs/parity")
+    pa.add_argument("--subjects", default="default",
+                    help="'default' (synthetic trio or all 15), 'all', or a list")
+    pa.add_argument("--imsize", type=int, default=256)
+    pa.add_argument("--batch-size", type=int, default=96)
+    pa.add_argument("--projection-epochs", type=int, default=5)
+    pa.add_argument("--fine-tune-epochs", type=int, default=15)
+    pa.add_argument("--pretrained-backbone", default=None)
+    pa.add_argument("--backbone", default="resnet18",
+                    choices=["resnet18", "resnet34", "resnet50", "wide_resnet50_2"])
+    pa.add_argument("--patch-dim", type=int, default=32)
+    pa.add_argument("--stride", type=int, default=8)
+    pa.add_argument("--modes", default="image,patch")
+    pa.add_argument("--seed", type=int, default=0)
+    pa.add_argument("--quiet", action="store_true")
+    serving_cli.add_device_flag(pa)
+    pa.set_defaults(fn=cmd_parity)
     return p
 
 

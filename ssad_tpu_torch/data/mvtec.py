@@ -2,14 +2,17 @@
 of one subject and its test set.
 
 Counterpart of ssad_tpu/data/mvtec.py:25-38 (load_image), :41-50
-(load_mask), :53-63 (load_stack, its PIL path), :66-87 (load_mask_stack),
+(load_mask), :53-63 (load_stack), :66-87 (load_mask_stack),
 :90-102 (train_val_split), :105-217 (PretextData, prepare_pretext_data:
 the split images with the cut pool and object masks the pretext
 synthesizer reads) and :221-252 (MVTecTestData,
 prepare_mvtec_test_data).  ``load_split`` is the split images alone,
 which is all the patch export reads; ``data.masks`` (OpenCV) is imported
-only where masks are made.  The native threaded loader is slice 9 of
-the port.
+only where masks are made.  ``load_stack`` and ``load_mask_stack`` decode
+through the native threaded loader (ssad_tpu_torch/native) when it is
+built, and through PIL otherwise and for the files it leaves to PIL
+(palette, alpha and 16-bit PNGs, decode failures), as the JAX package's
+do.
 """
 
 from __future__ import annotations
@@ -51,17 +54,36 @@ def load_mask(path: Optional[str | Path], imsize: Tuple[int, int]) -> np.ndarray
 
 
 def load_stack(paths: Sequence[str], imsize: Tuple[int, int]) -> np.ndarray:
-    """Decode + resize a list of images → (N, H, W, 3) float32."""
+    """Decode + resize a list of images → (N, H, W, 3) float32: the native
+    loader when it is built and takes the files, else ``load_image``."""
     if not paths:
         return np.zeros((0,) + tuple(imsize) + (3,), np.float32)
+    from ssad_tpu_torch import native
+
+    batch = native.decode_resize_batch(paths, imsize, channels=3)
+    if batch is not None:
+        return batch
     return np.stack([load_image(p, imsize) for p in paths])
 
 
 def load_mask_stack(paths: Sequence[Optional[str]], imsize: Tuple[int, int]) -> np.ndarray:
-    """GT masks (None: blank) → (N, H, W) float {0,1}."""
-    if not paths:
-        return np.zeros((0,) + tuple(imsize), np.float32)
-    return np.stack([load_mask(p, imsize) for p in paths])
+    """GT masks (None: blank) → (N, H, W) float {0,1}: a native grayscale
+    decode of the given paths (> 127 as in ``load_mask``) when it takes
+    them, else ``load_mask``."""
+    out = np.zeros((len(paths),) + tuple(imsize), np.float32)
+    real = [(i, p) for i, p in enumerate(paths) if p is not None]
+    if not real:
+        return out
+    from ssad_tpu_torch import native
+
+    batch = native.decode_resize_batch([p for _, p in real], imsize, channels=1)
+    if batch is not None:
+        idx = np.asarray([i for i, _ in real])
+        out[idx] = (batch[..., 0] > (127.0 / 255.0)).astype(np.float32)
+        return out
+    for i, p in real:
+        out[i] = load_mask(p, imsize)
+    return out
 
 
 def train_val_split(

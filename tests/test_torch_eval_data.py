@@ -2,11 +2,11 @@
 (``data/mvtec.py``, ``utils/filesystem.py``, ``utils/convert.py``) and
 ``EvalConfig``, against the JAX package's on ``fake_mvtec``
 (tests/conftest.py).  Images, masks, labels and filenames must be equal.
-The port decodes with PIL; the JAX package with its native loader where
-it builds, and PIL otherwise.  The two agree bit for bit where nothing is
-resized (64² files at 64²); at another size the JAX side is held through
-its PIL path (the native loader's own tolerance against PIL is
-tests/test_native.py's), which the port's decoder is a copy of."""
+Both packages decode with their native loaders where they build (the
+port's is a copy of the JAX package's: tests/test_torch_native_loader.py)
+and with PIL otherwise, so they agree bit for bit at 64² (nothing
+resized) and at 48×40; with both native loaders off, both PIL paths
+agree too."""
 
 import numpy as np
 import pytest
@@ -24,11 +24,7 @@ from ssad_tpu_torch.utils import filesystem as fs
 
 @pytest.mark.parametrize("subject", ["bottle", "carpet"])
 @pytest.mark.parametrize("imsize", [(64, 64), (48, 40)])
-def test_test_data_equals_jax(fake_mvtec, monkeypatch, subject, imsize):
-    if imsize != (64, 64):
-        from ssad_tpu import native
-
-        monkeypatch.setattr(native, "decode_resize_batch", lambda *a, **k: None)
+def test_test_data_equals_jax(fake_mvtec, subject, imsize):
     got = pm.prepare_mvtec_test_data(fake_mvtec, subject, imsize=imsize)
     want = jm.prepare_mvtec_test_data(fake_mvtec, subject, imsize=imsize)
     assert got.filenames == want.filenames and got.imsize == want.imsize
@@ -36,6 +32,19 @@ def test_test_data_equals_jax(fake_mvtec, monkeypatch, subject, imsize):
         a, b = getattr(got, name), getattr(want, name)
         assert a.dtype == b.dtype and np.array_equal(a, b), name
     assert got.labels.tolist() == [1, 1, 0, 0]  # broken/ before good/, each sorted
+
+
+@pytest.mark.parametrize("subject", ["bottle", "carpet"])
+def test_test_data_equals_jax_on_the_pil_path(fake_mvtec, monkeypatch, subject):
+    from ssad_tpu import native as jnative
+    from ssad_tpu_torch import native
+
+    for mod in (jnative, native):
+        monkeypatch.setattr(mod, "decode_resize_batch", lambda *a, **k: None)
+    got = pm.prepare_mvtec_test_data(fake_mvtec, subject, imsize=(48, 40))
+    want = jm.prepare_mvtec_test_data(fake_mvtec, subject, imsize=(48, 40))
+    for name in ("images", "ground_truths", "labels"):
+        assert np.array_equal(getattr(got, name), getattr(want, name)), name
 
 
 def test_layout_helpers_equal_jax(fake_mvtec, tmp_path):

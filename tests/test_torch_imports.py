@@ -30,14 +30,15 @@ def test_slice_modules_import_without_jax():
         [sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True, timeout=120
     )
     assert proc.returncode == 0, proc.stdout + proc.stderr
-    assert len(MODULES) >= 54, len(MODULES)  # a dropped module fails here
+    assert len(MODULES) >= 56, len(MODULES)  # a dropped module fails here
     for m in ("ssad_tpu_torch.ops.coreset", "ssad_tpu_torch.evaluation.evaluator", "ssad_tpu_torch.evaluation.metrics",
               "ssad_tpu_torch.evaluation.metrics_device", "ssad_tpu_torch.evaluation.error_analysis",
               "ssad_tpu_torch.models.gradcam", "ssad_tpu_torch.utils.convert",
               "ssad_tpu_torch.evaluation.tsne", "ssad_tpu_torch.evaluation.localizer",
               "ssad_tpu_torch.serving.quant", "ssad_tpu_torch.serving.client",
               "ssad_tpu_torch.serving.loadgen", "ssad_tpu_torch.serving.replicas",
-              "ssad_tpu_torch.serving.native_frontend", "ssad_tpu_torch.native"):
+              "ssad_tpu_torch.serving.native_frontend", "ssad_tpu_torch.native",
+              "ssad_tpu_torch.parity", "ssad_tpu_torch.utils.profiling"):
         assert m in MODULES, m
 
 
@@ -86,7 +87,8 @@ def test_resolve_device_defaults_to_cuda_or_raises():
             resolve_device("cuda")
 
 
-@pytest.mark.parametrize("command", ["score", "qa", "train", "evaluate", "infer"])
+@pytest.mark.parametrize("command", ["score", "qa", "train", "evaluate", "infer", "parity",
+                                     "profile"])
 def test_cli_without_device_flag_refuses_the_cpu(tmp_path, command):
     if torch.cuda.is_available():
         pytest.skip("a card is present: the default device is usable")
@@ -98,6 +100,9 @@ def test_cli_without_device_flag_refuses_the_cpu(tmp_path, command):
         "evaluate": ["--dataset-dir", str(tmp_path), "--models-dir", str(tmp_path)],
         "infer": ["--dataset-dir", str(tmp_path), "--models-dir", str(tmp_path),
                   "--subject", "bottle"],
+        "parity": ["--outputs-dir", str(tmp_path / "parity")],
+        "profile": ["--dataset-dir", str(tmp_path), "--subject", "bottle", "--profile-dir",
+                    str(tmp_path / "trace")],
     }[command]
     proc = subprocess.run(
         [sys.executable, "-m", "ssad_tpu_torch.cli", command, *args],
