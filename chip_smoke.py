@@ -211,16 +211,39 @@ failure; the script exits 0 only when all pass):
    before (b) and (c) and read just after each; every kernel call of both
    is recorded and held against its plain version (k-NN 1e-5, the stem at
    phase 2's tolerance).
-12. Print one JSON line of kernel records (all three kernels, with their
+12. Drive the multi-device path on the one card (parallel/).  (a) ``cli
+   train-multi --stack 2`` over bottle and cable (phase 5's tree, 256²,
+   batch 96, bf16, cut to 1 + 1 epochs of 2 steps): each checkpoint
+   loaded, each history's epochs; each category's first stacked step
+   against its single-category ``Trainer.train_step`` on the same draws
+   and stacked data (TREE_256_LIMITS, cuDNN deterministic, bit-equal
+   reported); ms per stacked step against the two single steps.  (b) The
+   data-parallel step on NCCL at world size 1 (3 steps) against the
+   plain trainer's, then ``cli train --data-shards 1``.  (c) Two shards
+   on the one card, ``maybe_shard_engine(engine, 2, [cuda:0, cuda:0])``,
+   on phase 6's weights in f32 and phase 7's test split: image level (the
+   forward, the k-NN fit and scores), patch level (sharded normality,
+   every 8-image batch's maps: the stem and the tiled k-NN on each
+   shard) and the resident k-NN on each shard against a 1,000-row bank:
+   maps and scores within 1e-5 of the unsharded engine, embeddings and
+   logits within F32_MODEL_TOL of 1 + |ref| (a half batch may take other
+   cuDNN algorithms).  (d) ``evaluate_categories``
+   with ``category_shards=2`` on [cuda:0, cuda:0] over (a)'s checkpoints
+   at patch level: pixel AUROC, IoU and AUPRO within 1e-6 of the
+   sequential sweep.  Launch counts are reset just before (c)'s sharded
+   runs and read just after (d)'s; every kernel call is recorded and
+   held against its plain version.
+13. Print one JSON line of kernel records (all three kernels, with their
    launches on the training, evaluation, scorer, localize, serving
-   extras, native serving, profile and parity paths), the script's
-   seconds, the card line again, and the final {"ok": true, "device":
-   ...} line.
+   extras, native serving, profile, parity and multi-device paths), the
+   script's seconds, the card line again, and the final {"ok": true,
+   "device": ...} line.
 """
 
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import http.client
 import io
 import json
@@ -279,6 +302,11 @@ NATIVE_INPROC_REQUESTS, NATIVE_CLIENTS, NATIVE_CHECK_IMAGES = (320, 160), (4, 16
 #: parity``'s means that only a broken pipeline misses (chance is 0.5)
 PROFILE_STEPS, PROFILE_BATCH = 10, 8
 PARITY_IMAGE_AUROC_FLOOR, PARITY_PIXEL_AUROC_FLOOR = 0.80, 0.90
+#: phase 12: train-multi's two fixed-pose subjects and its epoch length (9
+#: train PNGs duplicated to 198 → 2 steps of 96), the timed steps, the
+#: sharded engine's limit against the unsharded one, cable's test split
+MULTI_SUBJECTS, MULTI_MIN_LEN, MULTI_TIMED, MULTI_TOL = ("bottle", "cable"), 192, 5, 1e-5
+MULTI_CABLE_SPLIT = (("good", 10), ("broken_large", 10))
 #: the JAX package's accuracy on the same synthetic trio at the same
 #: defaults (256², batch 96, ResNet-18, 5 + 15 epochs, seed 0), copied from
 #: outputs/parity/parity_summary.json (accuracy only: no time of it is used)
@@ -970,16 +998,21 @@ def drive_patch_path(device, work: Path, seed: int = 1):
     return launches, serving
 
 
+#: phase 5's tree: the synthesis cases' subjects, then phase 12's second
+#: fixed-pose object (last, so the others' images do not move)
+SYNTH_TREE = ("bottle", "hazelnut", "screw", "carpet", "cable")
+
+
 def write_synth_tree(root: Path, seed: int = 3, images: int = SYNTH_IMAGES) -> None:
     """A seeded MVTec-layout tree of ``images`` 256² train-good PNGs per
     category: a bright disc on a noisy gradient for the objects (moving
-    from image to image for the non-fixed hazelnut and screw), seeded noise
-    for the carpet texture."""
+    from image to image for the non-fixed hazelnut and screw; fixed, as
+    bottle's, for cable), seeded noise for the carpet texture."""
     from PIL import Image
 
     rng = np.random.default_rng(seed)
     yy, xx = np.mgrid[0:IMSIZE, 0:IMSIZE]
-    for cat in ("bottle", "hazelnut", "screw", "carpet"):
+    for cat in SYNTH_TREE:
         good = root / cat / "train" / "good"
         good.mkdir(parents=True)
         for i in range(images):
@@ -987,7 +1020,8 @@ def write_synth_tree(root: Path, seed: int = 3, images: int = SYNTH_IMAGES) -> N
                 img = rng.integers(70, 130, (IMSIZE, IMSIZE, 3)).astype(np.uint8)
             else:
                 img = (synthetic_images(rng, 1)[0] * 160).astype(np.uint8)
-                dy, dx = (0, 0) if cat == "bottle" else (8 * (i % 5) - 16, 6 * (i % 7) - 18)
+                dy, dx = ((0, 0) if cat in ("bottle", "cable")
+                          else (8 * (i % 5) - 16, 6 * (i % 7) - 18))
                 disc = (yy - 128 - dy) ** 2 + (xx - 128 - dx) ** 2 < 70**2
                 img[disc] = np.clip(img[disc].astype(int) + 80, 0, 255).astype(np.uint8)
             Image.fromarray(img).save(good / f"{i:03d}.png")
@@ -1034,7 +1068,7 @@ def drive_synthesis(device, work: Path) -> dict:
     root = work / "synth_mvtec"
     t0 = time.perf_counter()
     write_synth_tree(root)
-    print(f"synth data: {4 * SYNTH_IMAGES} PNGs in {time.perf_counter() - t0:.2f} s",
+    print(f"synth data: {len(SYNTH_TREE) * SYNTH_IMAGES} PNGs in {time.perf_counter() - t0:.2f} s",
           flush=True)
     records = {}
     for subject, patch in SYNTH_CASES:
@@ -2748,6 +2782,349 @@ def drive_harness(work: Path) -> dict:
             "parity": drive_parity(work)}
 
 
+# ---- phase 12: multi-device on one card -------------------------------------
+
+
+@contextlib.contextmanager
+def cudnn_deterministic():
+    """cuDNN's deterministic algorithms inside the block, so two runs of
+    one step can be held bit for bit."""
+    import torch
+
+    prev = torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = prev
+
+
+def _step_rec(trainer, state, metrics) -> dict:
+    """A step's record in train/step_parity.py's form (the bank twice: no
+    given-mask insert here)."""
+    def host(t):
+        return t.detach().cpu().double()
+
+    bank = [host(t) for t in state.bank]
+    return {"loss": host(metrics["loss"]), "logits": host(metrics["logits"]),
+            "state": {k: host(v) for k, v in trainer.model.state_dict().items()
+                      if not k.endswith("num_batches_tracked")},
+            "grads": {n: host(p.grad) for n, p in trainer.model.named_parameters()},
+            "bank": bank, "given": bank}
+
+
+def _held(name: str, got: dict, want: dict) -> dict:
+    """step_parity's deltas of two step records, held to TREE_256_LIMITS."""
+    from ssad_tpu_torch.train import step_parity as sp
+
+    d = sp.step_deltas(got, want)
+    d["bit_equal"] = all(v == 0.0 for v in d.values())
+    bad = sp.beyond(d, sp.TREE_256_LIMITS)
+    if bad:
+        fail(f"{name}: beyond TREE_256_LIMITS in {bad}: {d}")
+    return d
+
+
+def _median_ms(fn, n: int = MULTI_TIMED) -> float:
+    import torch
+
+    times = []
+    for _ in range(n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return float(np.median(times))
+
+
+def drive_train_multi(device, work: Path) -> dict:
+    """Phase 12a: ``cli train-multi --stack 2`` over bottle and cable at
+    full width (cut to 1 + 1 epochs), each checkpoint loaded and each
+    history read; the first stacked step of each category against the
+    single-category ``Trainer.train_step`` on the same draws and stacked
+    data; ms per stacked step against the two single steps (T5's shape:
+    256², batch 96, bf16, the fine-tune step with the fill)."""
+    import copy
+
+    import torch
+
+    from ssad_tpu_torch.config import DataConfig, TrainConfig
+    from ssad_tpu_torch.data import mvtec
+    from ssad_tpu_torch.evaluation import inference as inf
+    from ssad_tpu_torch.parallel import category_parallel as cp
+    from ssad_tpu_torch.train.trainer import Trainer
+
+    root, out = work / "synth_mvtec", work / "multi_out"
+    lines, wall = _run_cli(["train-multi", "--dataset-dir", str(root), "--subjects",
+                            ",".join(MULTI_SUBJECTS), "--stack", "2", "--outputs-dir", str(out),
+                            "--imsize", str(IMSIZE), "--batch-size", str(TRAIN_BATCH),
+                            "--projection-epochs", "1", "--fine-tune-epochs", "1",
+                            "--min-dataset-length", str(MULTI_MIN_LEN), "--quiet"])
+    rec = {"wall_s": wall, "stdout": lines, "checkpoints": {}}
+    x = torch.rand(2, IMSIZE, IMSIZE, 3, generator=torch.Generator().manual_seed(0))
+    for s in MULTI_SUBJECTS:
+        hist = json.loads((out / s / "history.json").read_text())
+        engine, bank, _ = inf.load_engine(out / s / "best_model.ckpt", device)
+        logits, emb = engine.predict_batch(x.to(device))
+        rec["checkpoints"][s] = {
+            "epochs": {k: len(v) for k, v in hist.items() if k.endswith("val_loss")},
+            "bank_rows": int(bank.count) if bank is not None else 0,
+            "finite": bool(torch.isfinite(emb).all() and torch.isfinite(logits).all())}
+        if rec["checkpoints"][s]["epochs"] != {"projection_val_loss": 1,
+                                               "fine_tune_val_loss": 1} or \
+                not rec["checkpoints"][s]["finite"]:
+            fail(f"train-multi {s}: {rec['checkpoints'][s]}")
+
+    cfg = TrainConfig(data=DataConfig(imsize=(IMSIZE, IMSIZE), batch_size=TRAIN_BATCH,
+                                      min_dataset_length=MULTI_MIN_LEN))
+    datas = [mvtec.prepare_pretext_data(root, s, imsize=cfg.data.imsize,
+                                        val_fraction=cfg.data.train_val_split, seed=0)
+             for s in MULTI_SUBJECTS]
+    chunk = cp._chunk_data(datas)
+    trainers, states, gens, singles = [], [], [], []
+    for p, data in enumerate(chunk):
+        sub = TrainConfig(data=DataConfig(subject=MULTI_SUBJECTS[p], imsize=cfg.data.imsize,
+                                          batch_size=TRAIN_BATCH,
+                                          min_dataset_length=MULTI_MIN_LEN))
+        t = Trainer(sub, data, device)
+        if p:
+            t.spec = trainers[0].spec
+        trainers.append(t)
+        states.append(t.init_state("fine_tune", generator=cp.category_generator(0, 0, p)))
+        gens.append(cp.category_generator(0, 2, p))
+        singles.append(copy.deepcopy((t, states[-1], gens[-1])))
+    dds = [t.device_data("train") for t in trainers]
+    with cudnn_deterministic():
+        states, metrics = cp.stacked_step(trainers, states, gens, dds, True)
+        stacked = [_step_rec(t, s, m) for t, s, m in zip(trainers, states, metrics)]
+        rec["first_step_vs_single"] = {}
+        for p, (t, st, g) in enumerate(singles):
+            dd = t.device_data("train")
+            st, m = t.train_step(st, t.upload_draws(g, dd), dd, True)
+            rec["first_step_vs_single"][MULTI_SUBJECTS[p]] = _held(
+                f"stacked step of {MULTI_SUBJECTS[p]} vs its single step", stacked[p],
+                _step_rec(t, st, m))
+    del singles
+    box = {"states": states}
+
+    def stacked_step():
+        box["states"], _ = cp.stacked_step(trainers, box["states"], gens, dds, True)
+
+    def single(p):
+        def run():
+            box["states"][p], _ = trainers[p].train_step(
+                box["states"][p], trainers[p].upload_draws(gens[p], dds[p]), dds[p], True)
+        return run
+
+    for _ in range(2):  # warm
+        stacked_step()
+    rec["stacked_step_ms"] = _median_ms(stacked_step)
+    rec["single_step_ms"] = [_median_ms(single(p)) for p in range(len(trainers))]
+    rec["stacked_over_singles"] = rec["stacked_step_ms"] / sum(rec["single_step_ms"])
+    return rec
+
+
+def drive_data_shards_1(device, work: Path) -> dict:
+    """Phase 12b: the data-parallel step on NCCL at world size 1 against
+    the plain trainer's (same init, same draws, 3 fine-tune steps, the
+    last with the fill): every all-reduce is an identity, so within
+    TREE_256_LIMITS and bit-equal where cuDNN is deterministic; then ``cli
+    train --data-shards 1`` through its rank."""
+    import torch
+
+    from ssad_tpu_torch.config import DataConfig, TrainConfig
+    from ssad_tpu_torch.data import mvtec
+    from ssad_tpu_torch.parallel import distributed as dist_mod
+    from ssad_tpu_torch.train.trainer import DataGroup, Trainer, stage_generator
+    from ssad_tpu_torch.utils.ref_checkpoint import load_checkpoint
+
+    root = work / "synth_mvtec"
+    cfg = TrainConfig(data=DataConfig(subject="bottle", imsize=(IMSIZE, IMSIZE),
+                                      batch_size=TRAIN_BATCH, min_dataset_length=MULTI_MIN_LEN))
+    data = mvtec.prepare_pretext_data(root, "bottle", imsize=cfg.data.imsize,
+                                      val_fraction=cfg.data.train_val_split, seed=0)
+
+    def steps(group):
+        t = Trainer(cfg, data, device, group)
+        st, gen, dd = t.init_state("fine_tune", seed=0), stage_generator(0, 2), None
+        dd = t.device_data("train")
+        for i in range(3):
+            st, m = t.train_step(st, t.upload_draws(gen, dd), dd, i == 2)
+        return _step_rec(t, st, m)
+
+    t0 = time.perf_counter()
+    with cudnn_deterministic():
+        plain = steps(None)
+        with dist_mod.process_group(f"127.0.0.1:{dist_mod.free_port()}", 1, 0, device):
+            backend = torch.distributed.get_backend()
+            dp = steps(DataGroup(None, 0, 1))
+    rec = {"backend": backend, "vs_plain": _held("data-shards 1 vs the plain trainer", dp, plain),
+           "bank_rows": int(plain["bank"][2]), "steps_s": time.perf_counter() - t0}
+    if backend != "nccl":
+        fail(f"data-shards 1 on the card ran on {backend}")
+    lines, wall = _run_cli(["train", "--dataset-dir", str(root), "--subject", "bottle",
+                            "--outputs-dir", str(work / "dp_out"), "--imsize", str(IMSIZE),
+                            "--batch-size", str(TRAIN_BATCH), "--projection-epochs", "1",
+                            "--fine-tune-epochs", "1", "--min-dataset-length", str(TRAIN_BATCH),
+                            "--data-shards", "1", "--quiet"])
+    _, _, _, tcfg = load_checkpoint(work / "dp_out" / "bottle" / "best_model.ckpt")
+    rec.update(cli_wall_s=wall, cli_stdout=lines, mesh=[tcfg.mesh.model_axis, tcfg.mesh.data_axis])
+    if rec["mesh"] != [1, 1]:
+        fail(f"train --data-shards 1 saved mesh {rec['mesh']}")
+    return rec
+
+
+def drive_sharded_eval(device, work: Path) -> dict:
+    """Phase 12c and 12d: ``maybe_shard_engine(engine, 2, [cuda:0, cuda:0])``
+    on phase 6's checkpoint (in f32) and phase 7's test split (image level: the forward and
+    the k-NN fit and scores; patch level: sharded normality, and every
+    8-image batch's maps, the stem and the tiled k-NN on each shard; the
+    resident kernel on each shard against a seeded 1,000-row bank; maps
+    and scores within 1e-5, embeddings and logits within F32_MODEL_TOL
+    of 1 + |ref|), then
+    ``evaluate_categories(category_shards=2, devices=[cuda:0, cuda:0])``
+    over 12a's checkpoints, against the unsharded engine and the
+    sequential sweep.  The unsharded references run before the window;
+    launch counts are reset just before the sharded runs and read just
+    after, every kernel call recorded and held against its plain version."""
+    import torch
+
+    from ssad_tpu_torch.config import EvalConfig
+    from ssad_tpu_torch.data import mvtec
+    from ssad_tpu_torch.evaluation import inference as inf
+    from ssad_tpu_torch.evaluation.evaluator import evaluate_categories
+    from ssad_tpu_torch.models.detector import make_detector
+    from ssad_tpu_torch.models.peranet import build_model
+    from ssad_tpu_torch.ops import image as im
+    from ssad_tpu_torch.parallel.infer_parallel import maybe_shard_engine
+    from ssad_tpu_torch.utils.ref_checkpoint import load_checkpoint
+
+    root, models, multi = work / "synth_mvtec", work / "train_out", work / "multi_out"
+    write_eval_split(root / "cable", seed=6, split=MULTI_CABLE_SPLIT)
+    home = (torch.device("cuda", torch.cuda.current_device()) if device.type == "cuda"
+            else device)
+    shard_devs = [home, home]
+    # phase 6's weights in f32 (TF32 off): a half batch may take other cuDNN
+    # algorithms than the whole one, and in bf16 a changed f32 sum moves
+    # whole bf16 steps; the function held here is the split, not the dtype
+    state_dict, bank, mcfg, _ = load_checkpoint(models / "bottle" / "best_model.ckpt")
+    model = build_model(dataclasses.replace(mcfg, compute_dtype="float32"))
+    model.load_state_dict(state_dict, strict=True)
+    engine = inf.InferenceEngine(model, device)
+    sharded = maybe_shard_engine(engine, 2, devices=shard_devs)
+    imsize = (IMSIZE, IMSIZE)
+    test = mvtec.prepare_mvtec_test_data(root, "bottle", imsize=imsize)
+    data = mvtec.prepare_pretext_data(root, "bottle", imsize=imsize, seed=0)
+    batches = [im.normalize_imagenet(torch.from_numpy(test.images[lo:lo + BATCH]).to(device))
+               for lo in range(0, test.images.shape[0], BATCH)]
+    resident_bank = torch.from_numpy(np.random.default_rng(7).normal(
+        size=(BANK_ROWS, 512)).astype(np.float32)).to(device)
+
+    def image_level(e):
+        out = inf.predict_mvtec(e, test, batch_size=32)
+        normality = inf.normality_embeddings(e, bank, data.train_images)
+        out, det = inf.attach_anomaly_scores(out, normality, seed=0)
+        return out.embeddings, out.raw_predictions, out.anomaly_maps
+
+    def patch_normality(e):
+        return inf.normality_embeddings(e, None, data.train_images, batch_size=4,
+                                        patch_localization=True, min_bank_rows=10**9,
+                                        max_images=3, seed=0)
+
+    eval_cfg = dict(patch_localization=True, imsize=imsize, batch_size=32, seed=0)
+    # ---- the references: the unsharded engine and the sequential sweep -----
+    ref_image = image_level(engine)
+    ref_normality = patch_normality(engine)
+    det = make_detector("knn", k=3).fit(ref_normality, torch.Generator().manual_seed(0))
+    ref_maps = torch.cat([engine.score_maps(x, det.score, upsample_to=IMSIZE) for x in batches])
+    ref_resident = engine.score_patch_maps(batches[0], resident_bank, k=3, upsample_to=IMSIZE)
+    seq = evaluate_categories(root, multi, MULTI_SUBJECTS, EvalConfig(**eval_cfg),
+                              str(work / "multi_eval_seq"), device=device)
+    torch.cuda.synchronize()
+    # ---- the multi-device path: counts to 0 just before, read just after ----
+    _zero_launches()
+    t0 = time.perf_counter()
+    with recording_every_kernel() as calls:
+        got_image = image_level(sharded)
+        t_image = time.perf_counter()
+        got_normality = patch_normality(sharded)
+        got_maps = torch.cat([sharded.score_maps(x, det.score, upsample_to=IMSIZE)
+                              for x in batches])
+        got_resident = sharded.score_patch_maps(batches[0], resident_bank, k=3,
+                                                upsample_to=IMSIZE)
+        torch.cuda.synchronize()
+        t_patch = time.perf_counter()
+        par = evaluate_categories(root, multi, MULTI_SUBJECTS,
+                                  EvalConfig(**eval_cfg, category_shards=2),
+                                  str(work / "multi_eval_par"), device=device,
+                                  devices=shard_devs)
+        torch.cuda.synchronize()
+        t_end = time.perf_counter()
+        launches = _eval_launches()
+    # ---- end of the multi-device path ---------------------------------------
+    errs = {"image_embeddings": ref_image[0], "image_logits": ref_image[1],
+            "image_scores": ref_image[2], "patch_normality": ref_normality,
+            "patch_maps": ref_maps, "resident_maps": ref_resident}
+    gots = {"image_embeddings": got_image[0], "image_logits": got_image[1],
+            "image_scores": got_image[2], "patch_normality": got_normality,
+            "patch_maps": got_maps, "resident_maps": got_resident}
+    rec = {"sharded_vs_unsharded": {k: float((gots[k] - v).abs().max())
+                                    for k, v in errs.items()},
+           # embeddings and logits as JAX's test holds them: 1e-5 + 1e-5·|ref|
+           "sharded_vs_unsharded_rel": {k: float(((gots[k] - v).abs() / (1 + v.abs())).max())
+                                        for k, v in errs.items()},
+           "image_s": t_image - t0, "patch_s": t_patch - t_image,
+           "category_shards_s": t_end - t_patch, "launches": launches,
+           "calls": {k: len(v) for k, v in calls.items()},
+           "vs_plain": held_against_plain(calls, "multi-device")}
+    for k, v in rec["sharded_vs_unsharded"].items():
+        # the maps and scores within 1e-5; the embeddings and logits, whose
+        # half batches may take other cuDNN algorithms, at the f32 model's
+        # limit on the card, relative to 1 + |ref|
+        limit = MULTI_TOL
+        if k in ("image_embeddings", "image_logits", "patch_normality"):
+            v, limit = rec["sharded_vs_unsharded_rel"][k], F32_MODEL_TOL
+        if not v <= limit or gots[k].shape != errs[k].shape:
+            fail(f"sharded {k} vs unsharded: {v} (limit {limit}), shapes "
+                 f"{tuple(gots[k].shape)} / {tuple(errs[k].shape)}")
+    # every kernel on each shard: the patch batches split in two halves
+    per_shard = [c[0].shape[0] for c in calls["knn_cosine_scores_tiled"]]
+    halves = [(x.shape[0] + 1) // 2 * WINDOWS for x in batches]
+    rec["tiled_queries_per_call"] = per_shard
+    if sorted(per_shard[:2 * len(batches)]) != sorted(h for h in halves for _ in (0, 1)):
+        fail(f"the tiled k-NN did not run on each shard: {per_shard[:2 * len(batches)]}")
+    if sum(1 for c in calls["knn_cosine_scores"] if c[0].shape[0] == BATCH // 2 * WINDOWS) != 2:
+        fail("the resident k-NN did not run on each shard of the resident-bank batch")
+    if launches["stem_pool"] < 2 * (len(batches) + 1):
+        fail(f"stem kernel launches {launches['stem_pool']} < 2 shards × "
+             f"{len(batches) + 1} batches")
+    if any(rec["calls"][k] != launches[k] for k in launches):
+        fail(f"multi-device: recorded calls {rec['calls']} != launches {launches}")
+    rec["category_shards_vs_sequential"] = {
+        s: {k: abs(getattr(par[s], k) - getattr(seq[s], k))
+            for k in ("pixel_auroc", "iou", "aupro")} for s in MULTI_SUBJECTS}
+    rec["category_metrics"] = {s: {k: getattr(par[s], k) for k in ("pixel_auroc", "iou", "aupro")}
+                               for s in MULTI_SUBJECTS}
+    for s, d in rec["category_shards_vs_sequential"].items():
+        if not all(v <= 1e-6 for v in d.values()):
+            fail(f"evaluate --category-shards 2 {s} vs the sequential sweep: {d}")
+    return rec
+
+
+def drive_multi_device(device, work: Path) -> dict:
+    """Phase 12: train-multi, data-parallel training at world size 1 on
+    NCCL, sharded evaluation and category shards, on the one card."""
+    out = {}
+    for name, fn in (("train_multi", drive_train_multi), ("data_shards_1", drive_data_shards_1),
+                     ("sharded_eval", drive_sharded_eval)):
+        t0 = time.perf_counter()
+        out[name] = fn(device, work)
+        out[name]["phase_s"] = time.perf_counter() - t0
+        print(f"multi {name}: {json.dumps(out[name])} ({card_line()})", flush=True)
+    return out
+
+
 def main() -> int:
     t_start = time.perf_counter()
     try:
@@ -2800,6 +3177,9 @@ def main() -> int:
         t_harness = time.perf_counter()
         harness = drive_harness(work)
         print(f"phase 11: {time.perf_counter() - t_harness:.1f} s", flush=True)
+        t_multi = time.perf_counter()
+        multi = drive_multi_device(device, work)
+        print(f"phase 12: {time.perf_counter() - t_multi:.1f} s", flush=True)
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
@@ -2866,6 +3246,8 @@ def main() -> int:
         rec["native_serving_path_vs_plain"] = native["vs_plain"][name]
         rec["parity_path_launches"] = harness["parity"]["launches"][name]
         rec["parity_path_vs_plain"] = harness["parity"]["vs_plain"][name]
+        rec["parallel_path_launches"] = multi["sharded_eval"]["launches"][name]
+        rec["parallel_path_vs_plain"] = multi["sharded_eval"]["vs_plain"][name]
         if name != "knn_cosine_scores_tiled":  # patch scoring on a 1,000-row bank: resident
             rec["profile_path_launches"] = harness["profile"]["launches"][name]
             rec["profile_path_vs_plain"] = harness["profile"]["vs_plain"][name]
@@ -2874,6 +3256,7 @@ def main() -> int:
                 or rec["eval_path_launches"] < 1 or rec["scorer_path_launches"] < 1
                 or rec["serving_extras_path_launches"] < 1
                 or rec["native_serving_path_launches"] < 1
+                or rec["parallel_path_launches"] < 1
                 or (name != "knn_cosine_scores" and rec["localize_path_launches"] < 1)):
             fail(f"{rec['name']} was not launched on its path")
     print(json.dumps({"kernels": kernels}), flush=True)

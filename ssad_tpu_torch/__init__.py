@@ -11,14 +11,16 @@ CPU request it raises (utils/device.py).  The kernels of the serving
 paths are CUDA written for Hopper (csrc/knn.cu, csrc/knn_tiled.cu,
 csrc/stem_pool.cu), built with nvcc at first use.
 
-Package map (so far: the image- and patch-mode serving paths with their
-extras, device replicas and the native front end, the pretext
-synthesizer, two-phase training, evaluation with its figures and
-localization, the other scorers and backbones):
+Package map (every module of the JAX package has its counterpart: the
+image- and patch-mode serving paths with their extras, device replicas
+and the native front end, the pretext synthesizer, two-phase training,
+evaluation with its figures and localization, the other scorers and
+backbones, the harness, multi-device training and evaluation):
   config, constants  — dataclass configuration (TrainConfig and its JSON
                        form), MVTec taxonomy
-  cli                — train, import-ckpt, evaluate, infer, localize, qa;
-                       the serving commands of serving/cli.py
+  cli                — train, sweep, train-multi, import-ckpt, evaluate,
+                       infer, localize, qa, parity, profile, doctor; the
+                       serving commands of serving/cli.py
   utils/             — device resolution, reference-checkpoint I/O, the
                        JAX-state bridge, torchvision backbone weights,
                        dataset listing, label conversions
@@ -42,6 +44,10 @@ localization, the other scorers and backbones):
                        drift, CLI
   native/            — host C++ built with g++ at first use: the epoll
                        HTTP transport of ``serve --frontend native``
+  parallel/          — torch.distributed: the (model, data) rank grid,
+                       process groups and launching, data-parallel
+                       training's ranks, categories in lockstep
+                       (``train-multi``), batch-sharded inference
 """
 
 __version__ = "0.1.0"

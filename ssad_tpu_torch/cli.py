@@ -1,15 +1,21 @@
-"""Command line: ``python -m ssad_tpu_torch.cli train|import-ckpt|evaluate|
-infer|localize|export|serve|serve-bench|score|evaluate-artifact|qa|parity|
-profile|doctor``.
+"""Command line: ``python -m ssad_tpu_torch.cli train|sweep|train-multi|
+import-ckpt|evaluate|infer|localize|export|serve|serve-bench|score|
+evaluate-artifact|qa|parity|profile|doctor``.
 
-Counterpart of ssad_tpu/cli.py for the commands ported so far (the
-serving subcommands live in serving/cli.py, as in the JAX package).
-Each takes the JAX command's flags with ``--device`` in place of
-``--platform``.  ``train --data-shards``, ``sweep`` and ``train-multi`` are
-not ported; ``evaluate`` and ``infer`` take ``--data-shards``/
-``--category-shards`` above 1 (slice 9b) and refuse them.  Checkpoints
-are ``<models-dir>/<subject>/best_model.ckpt`` (``train``,
-``import-ckpt``).
+Counterpart of ssad_tpu/cli.py (the serving subcommands live in
+serving/cli.py, as in the JAX package).  Each takes the JAX command's
+flags with ``--device`` in place of ``--platform``.  Checkpoints are
+``<models-dir>/<subject>/best_model.ckpt`` (``train``, ``sweep``,
+``train-multi``, ``import-ckpt``).
+
+Multi-device (parallel/): ``train --data-shards N`` launches N local
+ranks, one per device, that train one category data-parallel;
+``train-multi`` trains categories in lockstep, over the ranks of this
+host or, with ``--coordinator HOST:PORT --num-processes N --process-id
+i``, of N processes (parallel/distributed.py gives the mapping);
+``evaluate|infer --data-shards N`` split each scoring batch over N
+devices, ``evaluate --category-shards N`` evaluates N categories at once.
+More shards than devices, or both evaluate flags above 1, exit 2.
 """
 
 from __future__ import annotations
@@ -22,7 +28,10 @@ import sys
 from pathlib import Path
 
 from ssad_tpu_torch import constants
-from ssad_tpu_torch.config import DataConfig, EvalConfig, ModelConfig, OptimConfig, TrainConfig
+from ssad_tpu_torch.config import (
+    DataConfig, EvalConfig, MeshConfig, ModelConfig, OptimConfig, TrainConfig,
+)
+from ssad_tpu_torch.parallel.mesh import ShardingError
 from ssad_tpu_torch.serving import cli as serving_cli
 from ssad_tpu_torch.utils.device import DeviceUnavailable
 
@@ -32,7 +41,7 @@ QA_BATCH = 64
 EXIT_PREEMPTED = 75
 
 
-def _train_cfg(args) -> TrainConfig:
+def _train_cfg(args, n_model: int = 1) -> TrainConfig:
     return TrainConfig(
         data=DataConfig(
             dataset_dir=args.dataset_dir, subject=args.subject,
@@ -46,56 +55,261 @@ def _train_cfg(args) -> TrainConfig:
             projection_epochs=args.projection_epochs, projection_lr=args.projection_lr,
             fine_tune_epochs=args.fine_tune_epochs, fine_tune_lr=args.fine_tune_lr,
         ),
+        mesh=MeshConfig(data_axis=getattr(args, "data_shards", None) or -1, model_axis=n_model),
         outputs_dir=args.outputs_dir,
         seed=args.seed,
     )
+
+
+def _write_artifacts(out: Path, cfg: TrainConfig, state_dict, bank, best_state_dict,
+                     history) -> str:
+    """A trained category's checkpoint (+ the best-val copy in
+    logs/best_model_so_far.ckpt), the two history plots and history.json
+    under ``out``; returns the checkpoint's path."""
+    from ssad_tpu_torch.evaluation import visualization as vis
+    from ssad_tpu_torch.train import checkpoint as ckpt
+
+    path = ckpt.save_checkpoint(out, state_dict, bank, cfg)
+    if best_state_dict is not None:
+        ckpt.save_checkpoint(out / "logs", best_state_dict, None, cfg, name="best_model_so_far")
+    for stage, mode in (("projection", "training"), ("fine_tune", "fine_tune")):
+        vis.plot_history({k: v for k, v in history.items() if k.startswith(stage)}, out,
+                         mode=mode)
+    (out / "history.json").write_text(json.dumps(
+        {k: [float(x) for x in v] for k, v in history.items()}, indent=1))
+    return path
+
+
+def _rank_args(args) -> argparse.Namespace:
+    """``args`` without its command function, as a spawned rank takes it."""
+    return argparse.Namespace(**{k: v for k, v in vars(args).items() if k != "fn"})
+
+
+def _drain_guard(guard):
+    """The drain poll of a rank: every rank's SIGTERM flag OR-ed."""
+    from ssad_tpu_torch.parallel import distributed as dist_mod
+
+    return lambda: dist_mod.global_any(guard())
 
 
 def cmd_train(args) -> int:
     """Train one category: <outputs-dir>/<subject>/best_model.ckpt (+ the
     best-val copy in logs/best_model_so_far.ckpt), the two history plots
     and history.json.  With --resume-dir, SIGTERM drains at the next epoch
-    boundary, prints a JSON resume hint and exits 75."""
-    from ssad_tpu_torch.data import mvtec
-    from ssad_tpu_torch.evaluation import visualization as vis
-    from ssad_tpu_torch.train import checkpoint as ckpt
-    from ssad_tpu_torch.train.trainer import GracefulPreemption, Trainer, TrainingPreempted
+    boundary, prints a JSON resume hint and exits 75.  With --data-shards
+    N, N local ranks (one per device; NCCL on cards, gloo on the CPU)
+    train the category data-parallel and rank 0 writes."""
+    from ssad_tpu_torch.parallel import distributed as dist_mod
+    from ssad_tpu_torch.parallel.mesh import local_devices
     from ssad_tpu_torch.utils.device import resolve_device
 
     device = resolve_device(args.device)
+    shards = getattr(args, "data_shards", None)
+    if not shards:
+        return _train(args, device)
+    n_dev = len(local_devices(device.type))
+    if shards > n_dev:
+        raise ShardingError(f"--data-shards {shards} > {n_dev} available devices")
+    coordinator = f"127.0.0.1:{dist_mod.free_port()}"
+    return dist_mod.launch_local(_train_rank, shards, 0,
+                                 (_rank_args(args), shards, coordinator))
+
+
+def _train_rank(rank: int, args, world: int, coordinator: str) -> int:
+    """Rank ``rank`` of ``train --data-shards``: its device, the process
+    group, then the data-parallel fit."""
+    import torch
+
+    from ssad_tpu_torch.parallel import distributed as dist_mod
+    from ssad_tpu_torch.train.trainer import DataGroup
+    from ssad_tpu_torch.utils.device import resolve_device
+
+    device = dist_mod.local_rank_device(resolve_device(args.device), rank)
+    if device.type == "cpu":
+        torch.set_num_threads(max(1, torch.get_num_threads() // world))
+    with dist_mod.process_group(coordinator, world, rank, device):
+        return _train(args, device, DataGroup(None, rank, world))
+
+
+def _train(args, device, data_group=None) -> int:
+    from ssad_tpu_torch.data import mvtec
+    from ssad_tpu_torch.parallel import distributed as dist_mod
+    from ssad_tpu_torch.train.trainer import GracefulPreemption, Trainer, TrainingPreempted
+
     cfg = _train_cfg(args)
     data = mvtec.prepare_pretext_data(
         cfg.data.dataset_dir, cfg.data.subject, imsize=cfg.data.imsize,
         val_fraction=cfg.data.train_val_split, seed=cfg.data.seed,
         patch_localization=cfg.data.patch_localization,
     )
-    trainer = Trainer(cfg, data, device)
+    trainer = Trainer(cfg, data, device, data_group)
+    writer = dist_mod.rank() == 0
+    verbose = not args.quiet and writer
     if args.resume_dir is not None:
         try:
             with GracefulPreemption() as guard:
-                result = trainer.fit(seed=cfg.seed, verbose=not args.quiet,
-                                     resume_dir=args.resume_dir, stop_requested=guard)
+                result = trainer.fit(seed=cfg.seed, verbose=verbose,
+                                     resume_dir=args.resume_dir, stop_requested=_drain_guard(guard))
         except TrainingPreempted as p:
-            print(json.dumps({
-                "preempted": True, "subject": args.subject, "stage": p.stage,
-                "epochs_done": p.epoch + 1, "resume_dir": args.resume_dir,
-                "hint": "re-run the same command to continue",
-            }), flush=True)
+            if writer:
+                print(json.dumps({
+                    "preempted": True, "subject": args.subject, "stage": p.stage,
+                    "epochs_done": p.epoch + 1, "resume_dir": args.resume_dir,
+                    "hint": "re-run the same command to continue",
+                }), flush=True)
             return EXIT_PREEMPTED
     else:
-        result = trainer.fit(seed=cfg.seed, verbose=not args.quiet)
-    out = Path(args.outputs_dir) / args.subject
-    path = ckpt.save_checkpoint(out, result.state_dict, result.bank, cfg)
-    if result.best_state_dict is not None:
-        ckpt.save_checkpoint(out / "logs", result.best_state_dict, None, cfg,
-                             name="best_model_so_far")
-    for stage, mode in (("projection", "training"), ("fine_tune", "fine_tune")):
-        vis.plot_history({k: v for k, v in result.history.items() if k.startswith(stage)},
-                         out, mode=mode)
-    (out / "history.json").write_text(json.dumps(
-        {k: [float(x) for x in v] for k, v in result.history.items()}, indent=1))
-    print(f"checkpoint: {path}", flush=True)
+        result = trainer.fit(seed=cfg.seed, verbose=verbose)
+    if writer:
+        path = _write_artifacts(Path(args.outputs_dir) / args.subject, cfg, result.state_dict,
+                                result.bank, result.best_state_dict, result.history)
+        print(f"checkpoint: {path}", flush=True)
     return 0
+
+
+def cmd_sweep(args) -> int:
+    """``train`` over --subjects in turn.  --skip-existing skips a subject
+    whose <outputs-dir>/<subject>/best_model.ckpt exists; --resume-dir
+    gives each subject <dir>/<subject> and arms the drain.  A SIGTERM
+    between subjects exits 75 with the subjects left."""
+    from ssad_tpu_torch.train.trainer import GracefulPreemption
+
+    subjects = _subjects(args)
+    base_resume = args.resume_dir
+    with GracefulPreemption() as guard:
+        for i, subject in enumerate(subjects):
+            if guard():
+                print(json.dumps({"preempted": True, "remaining": subjects[i:],
+                                  "hint": "re-run with --skip-existing to continue"}),
+                      flush=True)
+                return EXIT_PREEMPTED
+            if args.skip_existing and (Path(args.outputs_dir) / subject
+                                       / "best_model.ckpt").exists():
+                print(f"=== {subject}: checkpoint exists, skipping ===", flush=True)
+                continue
+            args.subject = subject
+            if base_resume is not None:
+                args.resume_dir = str(Path(base_resume) / subject)
+            print(f"=== training {subject} ===", flush=True)
+            rc = cmd_train(args)
+            if rc:
+                return rc
+    return 0
+
+
+def cmd_train_multi(args) -> int:
+    """Train --subjects in lockstep chunks of --stack on a (model, data)
+    grid of ranks (parallel/category_parallel.py).  Each process launches
+    --local-devices ranks (default: one per card; one on the CPU); with
+    --coordinator the N processes of --num-processes form one world, rank
+    0 serving the store at HOST:PORT.  Process 0 writes every artifact;
+    --resume-dir arms the coordinated drain (a SIGTERM to any process
+    drains all at one persisted epoch boundary, exit 75)."""
+    import torch
+
+    from ssad_tpu_torch.parallel import distributed as dist_mod
+    from ssad_tpu_torch.utils.device import resolve_device
+
+    device = resolve_device(args.device)
+    n_local = args.local_devices or (torch.cuda.device_count() if device.type == "cuda" else 1)
+    if args.coordinator:
+        if args.num_processes is None or args.process_id is None:
+            raise SystemExit("--coordinator requires --num-processes and --process-id")
+        world, first, coordinator = (args.num_processes * n_local, args.process_id * n_local,
+                                     args.coordinator)
+    else:
+        world, first, coordinator = n_local, 0, f"127.0.0.1:{dist_mod.free_port()}"
+    if world == 1:
+        return _train_multi(args, device)
+    return dist_mod.launch_local(_train_multi_rank, n_local, first,
+                                 (_rank_args(args), world, coordinator, n_local))
+
+
+def _train_multi_rank(rank: int, args, world: int, coordinator: str, n_local: int) -> int:
+    import torch
+
+    from ssad_tpu_torch.parallel import distributed as dist_mod
+    from ssad_tpu_torch.utils.device import resolve_device
+
+    device = dist_mod.local_rank_device(resolve_device(args.device), rank % n_local)
+    if device.type == "cpu":
+        torch.set_num_threads(max(1, torch.get_num_threads() // n_local))
+    with dist_mod.process_group(coordinator, world, rank, device):
+        return _train_multi(args, device)
+
+
+def _train_multi(args, device) -> int:
+    from ssad_tpu_torch.data import mvtec
+    from ssad_tpu_torch.parallel import distributed as dist_mod
+    from ssad_tpu_torch.parallel.category_parallel import fit_categories
+    from ssad_tpu_torch.parallel.mesh import mesh_from_config, new_groups, world_size
+    from ssad_tpu_torch.train.trainer import GracefulPreemption, TrainingPreempted
+
+    subjects = _subjects(args)
+    n_dev = world_size()
+    if args.model_shards:
+        n_model = args.model_shards
+    else:
+        # the largest divisor of the ranks ≤ the subject count that divides --stack
+        n_model = max((d for d in range(1, n_dev + 1)
+                       if not n_dev % d and d <= max(len(subjects), 1)
+                       and (args.stack is None or args.stack % d == 0)), default=1)
+    cfg = _train_cfg(argparse.Namespace(**{**vars(args), "subject": subjects[0]}), n_model)
+    grid = mesh_from_config(cfg.mesh)
+    groups = new_groups(grid)
+    datas = [mvtec.prepare_pretext_data(args.dataset_dir, s, imsize=cfg.data.imsize,
+                                        seed=args.seed, val_fraction=cfg.data.train_val_split,
+                                        patch_localization=cfg.data.patch_localization)
+             for s in subjects]
+    writer = dist_mod.rank() == 0
+    kw = dict(seed=args.seed, verbose=not args.quiet, stack_size=args.stack,
+              resume_dir=args.resume_dir, device=device, groups=groups)
+    failing = True
+    try:
+        if args.resume_dir is not None:
+            try:
+                with GracefulPreemption() as guard:
+                    results = fit_categories(cfg, subjects, datas, grid,
+                                             stop_requested=guard, **kw)
+            except TrainingPreempted as p:
+                if writer:
+                    print(json.dumps({
+                        "preempted": True, "stage": p.stage, "epochs_done": p.epoch + 1,
+                        "resume_dir": args.resume_dir,
+                        "hint": "re-run the same command on every host to continue",
+                    }), flush=True)
+                failing = False
+                return EXIT_PREEMPTED
+        else:
+            results = fit_categories(cfg, subjects, datas, grid, **kw)
+        if writer:
+            for subject, r in results.items():
+                # the saved config names this category: export and the
+                # augmentation policy key on it
+                sub_cfg = dataclasses.replace(cfg, data=dataclasses.replace(cfg.data,
+                                                                            subject=subject))
+                path = _write_artifacts(Path(args.outputs_dir) / subject, sub_cfg, r.state_dict,
+                                        r.bank, r.best_state_dict, r.history)
+                print(f"{subject}: {path}", flush=True)
+        failing = False
+        return 0
+    finally:
+        _train_multi_exit_barrier(failing)
+
+
+def _train_multi_exit_barrier(failing: bool) -> None:
+    """Hold every rank until process 0 has written its artifacts (a store
+    rendezvous, no collective deadline).  After an error the peer that
+    failed never arrives: wait 30 s only, and let the barrier's own error
+    not mask the original one."""
+    from ssad_tpu_torch.parallel import distributed as dist_mod
+
+    try:
+        dist_mod.barrier("train_multi_done", timeout_s=30.0 if failing else 1200.0)
+    except Exception as e:
+        if not failing:
+            raise
+        print(f"train-multi: exit barrier skipped after error: {e}", file=sys.stderr)
 
 
 def cmd_import_ckpt(args) -> int:
@@ -164,13 +378,16 @@ def cmd_infer(args) -> int:
     from ssad_tpu_torch.evaluation import inference as inf
     from ssad_tpu_torch.ops.patches import grid_side
 
-    # the scorer and sharding flags are checked by EvalConfig
+    from ssad_tpu_torch.parallel.infer_parallel import maybe_shard_engine
+
+    # the scorer flags are checked by EvalConfig
     EvalConfig(scorer=args.scorer, coreset=args.coreset, data_shards=args.data_shards)
     patch = args.patch_level
     if args.artificial and patch:
         raise SystemExit("--artificial and --patch-level are mutually exclusive")
     engine, bank, _ = inf.load_engine(
         Path(args.models_dir) / args.subject / "best_model.ckpt", args.device)
+    engine = maybe_shard_engine(engine, args.data_shards)
     imsize = (args.imsize, args.imsize)
     data = mvtec.prepare_pretext_data(args.dataset_dir, args.subject, imsize=imsize)
     if args.artificial:
@@ -476,9 +693,69 @@ def build_parser() -> argparse.ArgumentParser:
     t.add_argument("--resume-dir", default=None,
                    help="write epoch-granular resume snapshots here and continue "
                         "from an existing one")
+    t.add_argument("--data-shards", type=int, default=None,
+                   help="train data-parallel on N local ranks, one per device "
+                        "(single-category data parallelism)")
     t.add_argument("--quiet", action="store_true")
     serving_cli.add_device_flag(t)
     t.set_defaults(fn=cmd_train)
+
+    def training_args(sp):
+        sp.add_argument("--dataset-dir", required=True)
+        sp.add_argument("--outputs-dir", default="outputs")
+        sp.add_argument("--subjects", default="all")
+        sp.add_argument("--imsize", type=int, default=data_cfg.imsize[0])
+        sp.add_argument("--seed", type=int, default=0)
+        sp.add_argument("--patch-level", action="store_true")
+        sp.add_argument("--patch-size", type=int, default=data_cfg.patch_size)
+        sp.add_argument("--batch-size", type=int, default=data_cfg.batch_size)
+        sp.add_argument("--projection-epochs", type=int, default=optim_cfg.projection_epochs)
+        sp.add_argument("--projection-lr", type=float, default=optim_cfg.projection_lr)
+        sp.add_argument("--fine-tune-epochs", type=int, default=optim_cfg.fine_tune_epochs)
+        sp.add_argument("--fine-tune-lr", type=float, default=optim_cfg.fine_tune_lr)
+        sp.add_argument("--backbone", default="resnet18",
+                        choices=["resnet18", "resnet34", "resnet50", "wide_resnet50_2"])
+        sp.add_argument("--pretrained-backbone", default=None)
+        sp.add_argument("--min-dataset-length", type=int, default=data_cfg.min_dataset_length,
+                        help="duplicate the train file list up to this length per epoch "
+                             "(reference datasets.py:410)")
+        sp.add_argument("--quiet", action="store_true")
+        serving_cli.add_device_flag(sp)
+
+    s = sub.add_parser("sweep", help="train several categories, one after another")
+    training_args(s)
+    s.add_argument("--skip-existing", action="store_true",
+                   help="skip subjects whose best_model.ckpt already exists (restartable "
+                        "sweeps)")
+    s.add_argument("--resume-dir", default=None,
+                   help="base directory of per-subject resume snapshots (<dir>/<subject>); "
+                        "also arms the SIGTERM drain")
+    s.set_defaults(fn=cmd_sweep)
+
+    tm = sub.add_parser("train-multi", help="train categories in lockstep on a (model, data) "
+                                            "grid of ranks")
+    training_args(tm)
+    tm.add_argument("--model-shards", type=int, default=None,
+                    help="the grid's model axis (default: the largest divisor of the ranks "
+                         "not above the subject count)")
+    tm.add_argument("--stack", type=int, default=None,
+                    help="categories trained together per chunk (a multiple of "
+                         "--model-shards; several can share one device)")
+    tm.add_argument("--resume-dir", default=None,
+                    help="per-group epoch-granular resume snapshots; also arms the "
+                         "coordinated SIGTERM drain (a signal to any process drains all at "
+                         "one persisted epoch boundary; exit 75)")
+    tm.add_argument("--coordinator", default=None, metavar="HOST:PORT",
+                    help="join a multi-process run: every process runs this command "
+                         "against one address, where rank 0 serves the rendezvous store")
+    tm.add_argument("--num-processes", type=int, default=None,
+                    help="processes in the --coordinator run")
+    tm.add_argument("--process-id", type=int, default=None,
+                    help="this process's index (0-based; process 0 writes every artifact)")
+    tm.add_argument("--local-devices", type=int, default=None,
+                    help="ranks this process launches, one per device (default: one per "
+                         "card; one on the CPU, where N gives N CPU ranks)")
+    tm.set_defaults(fn=cmd_train_multi)
 
     ic = sub.add_parser("import-ckpt",
                         help="import a reference Lightning checkpoint as the port's checkpoint")
@@ -515,14 +792,15 @@ def build_parser() -> argparse.ArgumentParser:
                         help="distil the k-NN bank to N rows by k-center-greedy coreset "
                              "selection after the 70/30 split (default: every row)")
         sp.add_argument("--data-shards", type=int, default=None,
-                        help="above 1 not ported yet (slice 9): raises")
+                        help="split each scoring batch over the first N devices")
         serving_cli.add_device_flag(sp)
 
     e = sub.add_parser("evaluate", help="evaluate trained categories")
     scoring_args(e)
     e.add_argument("--subjects", default="all")
     e.add_argument("--category-shards", type=int, default=None,
-                   help="above 1 not ported yet (slice 9): raises")
+                   help="evaluate N categories concurrently, one whole category per device "
+                        "(no collectives; mutually exclusive with --data-shards)")
     e.add_argument("--n-normality-images", type=int, default=eval_cfg.n_normality_images,
                    help="patch mode: training images re-embedded for normality")
     e.add_argument("--host-metrics", action="store_true",
@@ -634,7 +912,7 @@ def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
     try:
         return args.fn(args)
-    except (DeviceUnavailable, NotImplementedError) as e:
+    except (DeviceUnavailable, NotImplementedError, ShardingError) as e:
         print(f"error: {e}", file=sys.stderr)
         return 2
 

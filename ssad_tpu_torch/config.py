@@ -131,8 +131,9 @@ class OptimConfig:
 
 @dataclasses.dataclass(frozen=True)
 class MeshConfig:
-    """The JAX package's device-mesh layout.  The port trains on one device
-    and only carries this, so that a ``train_config.json`` round-trips."""
+    """The (model, data) layout a run trained on: ``model_axis`` category
+    shards, ``data_axis`` data-parallel ranks (-1: every rank left).
+    ``parallel/mesh.py::mesh_from_config`` rebuilds the rank grid."""
 
     data_axis: int = -1
     model_axis: int = 1
@@ -182,8 +183,9 @@ def _to_tuple(v):
 class EvalConfig:
     """Evaluation sweep options (reference evaluator.py:432-444), the JAX
     package's fields and defaults.  An unknown scorer raises
-    ``ValueError``; data and category sharding are slice 9 of the port, and
-    asking for them raises ``NotImplementedError``."""
+    ``ValueError``.  ``data_shards`` splits each scoring batch over that
+    many devices, ``category_shards`` evaluates that many categories at
+    once (evaluation/evaluator.py ``evaluate_categories``)."""
 
     metrics: Tuple[str, ...] = ("auroc", "f1-score")
     patch_localization: bool = False
@@ -214,9 +216,5 @@ class EvalConfig:
     def __post_init__(self):
         if self.scorer not in ("knn", "mahalanobis"):
             raise ValueError(f"unknown scorer {self.scorer!r}; valid: knn, mahalanobis")
-        for name in ("data_shards", "category_shards"):
-            if (getattr(self, name) or 1) > 1:
-                raise NotImplementedError(
-                    f"{name} > 1 (multi-device evaluation) is slice 9 of the port (ROADMAP.md)")
         if self.upsample_size is None:
             object.__setattr__(self, "upsample_size", self.imsize[0])

@@ -337,20 +337,61 @@ def export_score_tables(table: M.ScoreTable, tables_dir: str, stem: str) -> None
 
 def evaluate_categories(dataset_dir: str, models_dir: str, subjects: Sequence[str],
                         cfg: EvalConfig, outputs_dir: str, checkpoint_name: str = "best_model",
-                        device=None) -> Dict[str, CategoryResult]:
-    """Evaluate the subjects one after another from
-    ``<models_dir>/<subject>/<checkpoint_name>.ckpt``, with per-category
-    plots under ``<outputs_dir>/<subject>`` and the aggregate tables and
-    curve overlays under ``<outputs_dir>/tables`` (reference evaluate(),
-    evaluator.py:432-564)."""
+                        device=None, devices: Optional[Sequence] = None
+                        ) -> Dict[str, CategoryResult]:
+    """Evaluate the subjects from ``<models_dir>/<subject>/<checkpoint_name>.ckpt``,
+    with per-category plots under ``<outputs_dir>/<subject>`` and the
+    aggregate tables and curve overlays under ``<outputs_dir>/tables``
+    (reference evaluate(), evaluator.py:432-564).
+
+    ``cfg.data_shards`` > 1 splits each scoring batch over that many
+    devices (parallel/infer_parallel.py).  ``cfg.category_shards`` > 1
+    evaluates that many categories at once, one whole category per
+    device, round-robin, each in a worker thread that enters its device
+    (so its kernels launch there and it makes its own cuDNN/cuBLAS
+    handles); categories share nothing, so the figures and tables are the
+    sequential sweep's.  The two are mutually exclusive, and more shards
+    than devices raise ``ShardingError``.  ``devices``: the devices the
+    category shards take (default: the first ``category_shards`` of
+    ``device``'s kind, parallel/mesh.py ``local_devices``)."""
+    from ssad_tpu_torch.parallel.infer_parallel import maybe_shard_engine
+    from ssad_tpu_torch.parallel.mesh import ShardingError, shard_devices
+    from ssad_tpu_torch.serving.replicas import device_context
+    from ssad_tpu_torch.utils.device import resolve_device
+
+    def eval_one(subject: str, dev) -> CategoryResult:
+        with device_context(dev):
+            engine, bank, _ = inf.load_engine(
+                Path(models_dir) / subject / f"{checkpoint_name}.ckpt", dev)
+            engine = maybe_shard_engine(engine, cfg.data_shards)
+            data = mvtec.prepare_pretext_data(dataset_dir, subject, imsize=cfg.imsize,
+                                              seed=cfg.seed)
+            test_data = mvtec.prepare_mvtec_test_data(dataset_dir, subject, imsize=cfg.imsize)
+            return evaluate_category(engine, bank, data, test_data, cfg, subject,
+                                     outputs_dir=str(Path(outputs_dir) / subject))
+
+    dev = resolve_device(device)
     results: Dict[str, CategoryResult] = {}
-    for subject in subjects:
-        engine, bank, _ = inf.load_engine(Path(models_dir) / subject / f"{checkpoint_name}.ckpt",
-                                          device)
-        data = mvtec.prepare_pretext_data(dataset_dir, subject, imsize=cfg.imsize, seed=cfg.seed)
-        test_data = mvtec.prepare_mvtec_test_data(dataset_dir, subject, imsize=cfg.imsize)
-        results[subject] = evaluate_category(engine, bank, data, test_data, cfg, subject,
-                                             outputs_dir=str(Path(outputs_dir) / subject))
+    shards = cfg.category_shards or 1
+    if shards > 1:
+        if cfg.data_shards and cfg.data_shards > 1:
+            raise ShardingError(
+                "category_shards and data_shards are mutually exclusive: "
+                "one parallelizes across categories, the other within a batch")
+        from concurrent.futures import ThreadPoolExecutor
+
+        if devices is None:
+            devices = shard_devices(shards, dev.type, "category_shards")
+        elif shards > len(devices):
+            raise ShardingError(f"category_shards={shards} exceeds {len(devices)} devices")
+        with ThreadPoolExecutor(max_workers=shards) as pool:
+            futures = {s: pool.submit(eval_one, s, devices[i % shards])
+                       for i, s in enumerate(subjects)}
+            for subject, fut in futures.items():
+                results[subject] = fut.result()
+    else:
+        for subject in subjects:
+            results[subject] = eval_one(subject, dev)
 
     tables_dir = str(Path(outputs_dir) / "tables")
     subjects = list(subjects)

@@ -28,6 +28,14 @@ variance.  PyTorch's own update (``F.batch_norm(training=True)``) uses
 the unbiased variance, n/(n−1) larger, which would move every eval-mode
 embedding and the memory bank away from the JAX package's.  Gradients
 flow through the batch statistics by autograd.
+
+After ``sync_batch_stats(model, group)`` (data-parallel training,
+train/trainer.py) the train-mode statistics are those of the whole batch
+across the group: each rank's f32 mean and mean square are averaged over
+it by a differentiable all-reduce, so the backward pass sees the global
+statistics too, as JAX's global-view step does.  The ranks' slices are
+equal, so the average of their moments is the batch's.  Without a group
+nothing changes, bit for bit.
 """
 
 from __future__ import annotations
@@ -51,6 +59,22 @@ class Conv2d(nn.Conv2d):
         return self._conv_forward(x, self.weight.to(x.dtype), None)
 
 
+def _group_mean(t: torch.Tensor, group) -> torch.Tensor:
+    import torch.distributed as dist
+    from torch.distributed.nn.functional import all_reduce
+
+    return all_reduce(t, op=dist.ReduceOp.SUM, group=group) / dist.get_world_size(group)
+
+
+def sync_batch_stats(model: nn.Module, group) -> None:
+    """Reduce every FlaxBatchNorm's train-mode statistics of ``model`` over
+    the ranks of ``group`` (a ``torch.distributed`` process group; None:
+    each rank's own batch)."""
+    for m in model.modules():
+        if isinstance(m, FlaxBatchNorm):
+            m.sync_group = group
+
+
 class FlaxBatchNorm:
     """BatchNorm in Flax's arithmetic order, output in ``out_dtype`` (the
     compute dtype; None keeps the input's).  ``train()`` normalises by the
@@ -58,6 +82,9 @@ class FlaxBatchNorm:
     running ones."""
 
     out_dtype = None
+    #: the process group train-mode statistics are averaged over
+    #: (``sync_batch_stats``); None: this batch alone
+    sync_group = None
     #: Flax's momentum: running ← MOMENTUM·running + (1 − MOMENTUM)·batch
     MOMENTUM = 0.9
 
@@ -67,8 +94,10 @@ class FlaxBatchNorm:
         if self.training:
             dims = (0,) + tuple(range(2, x.ndim))
             x32 = x.float()
-            mean = x32.mean(dims)
-            var = torch.clamp((x32 * x32).mean(dims) - mean * mean, min=0.0)
+            mean, mean_sq = x32.mean(dims), (x32 * x32).mean(dims)
+            if self.sync_group is not None:
+                mean, mean_sq = _group_mean(torch.stack([mean, mean_sq]), self.sync_group)
+            var = torch.clamp(mean_sq - mean * mean, min=0.0)
             with torch.no_grad():
                 m = self.MOMENTUM
                 self.running_mean.copy_(m * self.running_mean + (1.0 - m) * mean)

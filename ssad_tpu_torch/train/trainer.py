@@ -17,6 +17,18 @@ in a fill epoch, the bank fill with the UPDATED weights and statistics.
 Per-step metrics stay on the device and are read once per epoch; the step
 itself never reads the device from the host.
 
+Data parallelism (``train --data-shards N``; JAX: a 'data' mesh axis and
+a sharding constraint on the synthesized batch): one rank per device, the
+trainer given its ``DataGroup``.  JAX writes global-view code, so its
+sharded step is the single-device step, and so is this one.  Every rank
+draws the whole batch from the same generator and synthesizes it, then
+keeps its slice of the rows; the BatchNorm statistics are the whole
+batch's (models/resnet.py ``sync_batch_stats``), the gradients are
+all-reduced to the global mean, and the bank fill sees the whole batch
+(the logits gathered in rank order; every rank embeds the accepted
+originals itself, so the banks stay equal).  A plain per-rank BatchNorm
+(DDP's) would compute another function.
+
 Deliberate differences from the JAX package:
 * the stage generators are CPU ``torch.Generator``s, so the same seed
   trains on other batches than the JAX package's ``jax.random`` keys do
@@ -37,6 +49,7 @@ from typing import Dict, NamedTuple, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 from torch.profiler import record_function
 
@@ -44,6 +57,7 @@ from ssad_tpu_torch.config import TrainConfig
 from ssad_tpu_torch.data import mvtec
 from ssad_tpu_torch.data.synthetic import SynthSpec, draw, synthesize
 from ssad_tpu_torch.models.peranet import PeraNet, build_model, init_model
+from ssad_tpu_torch.models.resnet import sync_batch_stats
 from ssad_tpu_torch.ops.image import normalize_imagenet
 from ssad_tpu_torch.train.memory_bank import MemoryBank, init_bank, insert
 from ssad_tpu_torch.train.optim import StageOptimizer
@@ -114,6 +128,43 @@ class GracefulPreemption:
 
 
 @dataclasses.dataclass
+class DataGroup:
+    """The ranks that train one category's batch together: ``group`` (a
+    process group; None: the whole world), this rank's ``index`` in it
+    and its ``size``.  Rank i keeps rows [i·b/size, (i+1)·b/size)."""
+
+    group: Optional[object]
+    index: int
+    size: int
+
+    def rows(self, t: torch.Tensor) -> torch.Tensor:
+        b = t.shape[0] // self.size
+        return t[self.index * b:(self.index + 1) * b]
+
+    def gather(self, t: torch.Tensor) -> torch.Tensor:
+        """Every rank's ``t`` concatenated in rank order."""
+        parts = [torch.empty_like(t) for _ in range(self.size)]
+        dist.all_gather(parts, t.contiguous(), group=self.group)
+        return torch.cat(parts)
+
+    def mean(self, t: torch.Tensor) -> torch.Tensor:
+        t = t.detach().clone()
+        dist.all_reduce(t, group=self.group)
+        return t / self.size
+
+    def average_gradients(self, params) -> None:
+        """Each ``.grad`` ← the group's mean: one all-reduce of them all."""
+        grads = [p.grad for p in params if p.grad is not None]
+        flat = torch.cat([g.reshape(-1) for g in grads])
+        dist.all_reduce(flat, group=self.group)
+        flat /= self.size
+        lo = 0
+        for g in grads:
+            g.copy_(flat[lo:lo + g.numel()].view_as(g))
+            lo += g.numel()
+
+
+@dataclasses.dataclass
 class TrainState:
     model: PeraNet  # parameters and BatchNorm statistics
     optimizer: StageOptimizer  # momentum buffers and the schedule's step count
@@ -166,13 +217,21 @@ class DeviceData(NamedTuple):
 
 
 class Trainer:
-    """Trains one category on one device; see ``fit``."""
+    """Trains one category on one device, or on the ranks of a
+    ``data_group`` (each on its own device); see ``fit``."""
 
-    def __init__(self, cfg: TrainConfig, data: mvtec.PretextData, device=None):
+    def __init__(self, cfg: TrainConfig, data: mvtec.PretextData, device=None,
+                 data_group: Optional[DataGroup] = None):
+        if data_group is not None and cfg.data.batch_size % data_group.size:
+            raise ValueError(f"batch {cfg.data.batch_size} does not split over "
+                             f"{data_group.size} data shards")
         self.cfg = cfg
         self.data = data
+        self.data_group = data_group
         self.device = resolve_device(device)
         self.model = build_model(cfg.model)
+        if data_group is not None:
+            sync_batch_stats(self.model, data_group.group or dist.group.WORLD)
         self.spec = SynthSpec(subject=cfg.data.subject, imsize=cfg.data.imsize,
                               patch_localization=cfg.data.patch_localization,
                               patch_size=cfg.data.patch_size, aug=cfg.aug)
@@ -214,19 +273,24 @@ class Trainer:
         """One step from uploaded draws → (state, metrics as device tensors:
         loss, accuracy, logits).  The parameters' ``.grad`` keep the step's
         gradients until the next step."""
-        model, opt = state.model, state.optimizer
+        model, opt, dp = state.model, state.optimizer, self.data_group
         model.train()
         with record_function("synthesis"):
             x, y, orig = self.make_batch(dd, *uploaded)
         with record_function("forward"):
-            logits = model(x)["classifier"]
-            loss = F.cross_entropy(logits, y)
+            xs, ys = (x, y) if dp is None else (dp.rows(x), dp.rows(y))
+            logits = model(xs)["classifier"]
+            loss = F.cross_entropy(logits, ys)
         with record_function("backward"):
             opt.zero_grad()
             loss.backward()
+            if dp is not None:
+                dp.average_gradients(opt.params)
         with record_function("optimizer"):
             opt.step()
         logits = logits.detach()
+        if dp is not None:
+            logits, loss = dp.gather(logits), dp.mean(loss)
         y_hat = logits.argmax(dim=-1)
         bank = state.bank
         if fill:
@@ -239,12 +303,16 @@ class Trainer:
 
     def eval_step(self, model: PeraNet, uploaded, dd: DeviceData) -> dict:
         model.eval()
+        dp = self.data_group
         try:
             with torch.no_grad():
                 x, y, _ = self.make_batch(dd, *uploaded)
+                if dp is not None:
+                    x, y = dp.rows(x), dp.rows(y)
                 logits = model(x)["classifier"]
-                return {"loss": F.cross_entropy(logits, y),
-                        "accuracy": (logits.argmax(dim=-1) == y).float().mean()}
+                out = {"loss": F.cross_entropy(logits, y),
+                       "accuracy": (logits.argmax(dim=-1) == y).float().mean()}
+                return out if dp is None else {k: dp.mean(v) for k, v in out.items()}
         finally:
             model.train()
 
@@ -257,11 +325,13 @@ class Trainer:
                           StageOptimizer(self.model, self.cfg.optim, stage, self.steps_per_epoch),
                           init_bank(m.memory_bank_size, m.latent_dim, self.device))
 
-    def init_state(self, stage: str, seed: int = 0) -> TrainState:
-        """Initialise the model (the JAX package's distribution, from the
-        seed's init generator, on the CPU; then the pretrained backbone
-        when configured) and move it to the device."""
-        init_model(self.model.cpu(), stage_generator(seed, 0))
+    def init_state(self, stage: str, seed: int = 0,
+                   generator: Optional[torch.Generator] = None) -> TrainState:
+        """Initialise the model (the JAX package's distribution, from
+        ``generator`` or else the seed's init generator, on the CPU; then
+        the pretrained backbone when configured) and move it to the
+        device."""
+        init_model(self.model.cpu(), generator or stage_generator(seed, 0))
         if self.cfg.model.pretrained_backbone:
             from ssad_tpu_torch.utils.torch_weights import load_resnet18_into
 
@@ -378,7 +448,8 @@ class Trainer:
             result.best_val_loss = resume["best_val_loss"]
             result.best_state_dict = resume["best_state_dict"]
         on_epoch_end = None
-        if resume_dir is not None:
+        # one writer: the ranks of a data-parallel run hold the same state
+        if resume_dir is not None and (not dist.is_initialized() or dist.get_rank() == 0):
             def on_epoch_end(stage, epoch, state, generator, res):
                 self.save_resume_snapshot(resume_dir, stage, epoch + 1, state, generator, res)
         log = 1 if verbose else None

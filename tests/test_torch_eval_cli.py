@@ -9,7 +9,9 @@ labels and numbers within 2e-3 (the artificial table's good-vs-defect
 AUROC: tests/test_torch_evaluator.py says why; measured 8.0e-4).  Patch
 level and ``infer``: tests/test_torch_eval_cli_patch.py.  ``--scorer
 mahalanobis`` and ``--coreset`` run and write the same files (their JAX
-parity: tests/test_torch_scorer_cli*.py); sharding above 1 is refused."""
+parity: tests/test_torch_scorer_cli*.py); both sharding flags at once, and
+more shards than devices, are refused (tests/test_torch_parallel_*.py
+hold the sharded runs)."""
 
 import pytest
 from _torch_port import jax_masks_on_the_numpy_path  # noqa: F401  (autouse fixture)
@@ -64,10 +66,14 @@ def test_scorer_flags_run(fake_mvtec, tmp_path, capsys, flags, note):
 
 
 @pytest.mark.parametrize("flags,slice_no", [
-    pytest.param(["--data-shards", "2"], "slice 9", id="flags2-slice 9"),
-    pytest.param(["--category-shards", "2"], "slice 9", id="flags3-slice 9"),
+    pytest.param(["--data-shards", "2", "--category-shards", "2"], "mutually exclusive",
+                 id="flags2-slice 9"),
+    pytest.param(["--category-shards", "1000000"], "exceeds", id="flags3-slice 9"),
 ])
 def test_unported_flags_are_refused(fake_mvtec, tmp_path, capsys, flags, slice_no):
+    """The sharding flags are ported (slice 9); what the JAX command
+    refuses is refused, with exit 2: both parallelisms at once, and more
+    category shards than devices."""
     assert cli.main(_args(fake_mvtec, tmp_path, tmp_path / "out") + flags
                     + ["--device", "cpu"]) == 2
     assert slice_no in capsys.readouterr().err

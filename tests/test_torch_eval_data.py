@@ -104,9 +104,9 @@ def test_eval_config_defaults_equal_jax_and_unported_options_raise():
     for kw in (dict(scorer="mahalanobis"), dict(coreset=100),
                dict(scorer="mahalanobis", coreset=100)):
         assert dataclasses.asdict(EvalConfig(**kw)) == dataclasses.asdict(JEvalConfig(**kw))
-    for kw, slice_no in ((dict(data_shards=2), "slice 9"), (dict(category_shards=4), "slice 9")):
-        with pytest.raises(NotImplementedError, match=slice_no):
-            EvalConfig(**kw)
+    # sharding is ported (slice 9): taken as the JAX config takes it
+    for kw in (dict(data_shards=2), dict(category_shards=4)):
+        assert dataclasses.asdict(EvalConfig(**kw)) == dataclasses.asdict(JEvalConfig(**kw))
     assert EvalConfig(data_shards=1, category_shards=1).data_shards == 1
     with pytest.raises(ValueError):
         EvalConfig(scorer="lof")

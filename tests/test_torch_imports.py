@@ -30,7 +30,7 @@ def test_slice_modules_import_without_jax():
         [sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True, timeout=120
     )
     assert proc.returncode == 0, proc.stdout + proc.stderr
-    assert len(MODULES) >= 56, len(MODULES)  # a dropped module fails here
+    assert len(MODULES) >= 61, len(MODULES)  # a dropped module fails here
     for m in ("ssad_tpu_torch.ops.coreset", "ssad_tpu_torch.evaluation.evaluator", "ssad_tpu_torch.evaluation.metrics",
               "ssad_tpu_torch.evaluation.metrics_device", "ssad_tpu_torch.evaluation.error_analysis",
               "ssad_tpu_torch.models.gradcam", "ssad_tpu_torch.utils.convert",
@@ -38,7 +38,10 @@ def test_slice_modules_import_without_jax():
               "ssad_tpu_torch.serving.quant", "ssad_tpu_torch.serving.client",
               "ssad_tpu_torch.serving.loadgen", "ssad_tpu_torch.serving.replicas",
               "ssad_tpu_torch.serving.native_frontend", "ssad_tpu_torch.native",
-              "ssad_tpu_torch.parity", "ssad_tpu_torch.utils.profiling"):
+              "ssad_tpu_torch.parity", "ssad_tpu_torch.utils.profiling",
+              "ssad_tpu_torch.parallel", "ssad_tpu_torch.parallel.mesh",
+              "ssad_tpu_torch.parallel.distributed", "ssad_tpu_torch.parallel.category_parallel",
+              "ssad_tpu_torch.parallel.infer_parallel"):
         assert m in MODULES, m
 
 
@@ -88,7 +91,7 @@ def test_resolve_device_defaults_to_cuda_or_raises():
 
 
 @pytest.mark.parametrize("command", ["score", "qa", "train", "evaluate", "infer", "parity",
-                                     "profile"])
+                                     "profile", "sweep", "train-multi"])
 def test_cli_without_device_flag_refuses_the_cpu(tmp_path, command):
     if torch.cuda.is_available():
         pytest.skip("a card is present: the default device is usable")
@@ -103,6 +106,8 @@ def test_cli_without_device_flag_refuses_the_cpu(tmp_path, command):
         "parity": ["--outputs-dir", str(tmp_path / "parity")],
         "profile": ["--dataset-dir", str(tmp_path), "--subject", "bottle", "--profile-dir",
                     str(tmp_path / "trace")],
+        "sweep": ["--dataset-dir", str(tmp_path), "--subjects", "bottle"],
+        "train-multi": ["--dataset-dir", str(tmp_path), "--subjects", "bottle"],
     }[command]
     proc = subprocess.run(
         [sys.executable, "-m", "ssad_tpu_torch.cli", command, *args],
