@@ -5,8 +5,12 @@ Run from the repository root on a machine with one CUDA card:
 
     python3 chip_smoke.py
 
-It imports nothing of JAX or of the JAX package.  Phases (each raises on
-failure; the script exits 0 only when all pass):
+(``python3 chip_smoke.py --bf16`` builds the kernels and runs phase 6's
+bf16 checks alone, then ``bf16_alternatives``: the port's bf16
+convolutions against ones that hand their f32 accumulation to the
+BatchNorm, by time and by whether a row's result depends on its place in
+the batch.)  It imports nothing of JAX or of the JAX package.  Phases
+(each raises on failure; the script exits 0 only when all pass):
 
 1. Print the card's name and power limit (nvidia-smi), build every CUDA
    kernel of the serving paths from ssad_tpu_torch/csrc (knn, knn_tiled,
@@ -98,7 +102,19 @@ failure; the script exits 0 only when all pass):
    images under the CPU parity limits, and at 256² batch 16 on the tree
    under fixed wider limits (ssad_tpu_torch/train/step_parity.py says
    why); at each, the card step with TF32 on, a planted fault, must break
-   the limits; one
+   the limits.  Then the default dtype, bf16, layer by layer
+   (``bf16_step_parity``): the CPU step records every ReLU input and
+   convolution output and the cotangent at each, and the card
+   step runs with each layer given the CPU's input and cotangent, at 64²
+   batch 8 and at 256² batch 16 on the tree, under
+   ``BF16_CARD_LIMITS`` / ``BF16_TREE_256_LIMITS``; a planted fault (the
+   residual add in f32, rounded once after the ReLU) must break them; and
+   the bf16 eval forward the same way (``bf16_eval_parity``): image mode
+   on 8 256² images, patch mode on one image's 841 windows whose stem
+   runs csrc/stem_pool.cu, each k-NN call (csrc/knn.cu, csrc/knn_tiled.cu)
+   against its plain version; the per-layer readings print on lines of
+   their own (``train layers bf16``, ``eval layers bf16``).  No earlier
+   phase is cut for these checks.  Then one
    fill step under ``set_sync_debug_mode("error")``; and per stage
    (projection; fine-tune with the fill) the median ms per step over 10
    warm steps by CUDA events with and without the host draw + upload,
@@ -1210,6 +1226,262 @@ def train_step_parity(device, data, batch: int, limits: dict) -> dict:
     return rec
 
 
+def bf16_step_parity(device, data, batch: int, limits) -> dict:
+    """One bf16 fine-tune step on the card against the CPU port, layer by
+    layer: the CPU step records every ReLU input and convolution output
+    and the cotangent at each; the card step runs with each layer
+    given the CPU's input and cotangent (``step_parity.pinned_record``),
+    so what differs is each layer's own rounding.  Then the card step with
+    a planted fault (``f32_residual_add``: the residual add in f32,
+    rounded once after the ReLU), which must break ``limits``."""
+    from ssad_tpu_torch.train import _pinning as pn
+    from ssad_tpu_torch.train import step_parity as sp
+
+    h, _ = data.imsize
+    cfg = sp.step_config(data.imsize, batch, "bfloat16")
+    t0 = time.perf_counter()
+    host, decisions = sp.reference_record(cfg, data)
+    card, layers = sp.pinned_record(cfg, data, device, decisions)
+    rec = {"canvas": h, "batch": batch, **sp.step_deltas(card, host), **pn.layer_deltas(layers)}
+    bad_card, bad_layers = sp.pinned_record(cfg, data, device, decisions,
+                                            plant=pn.f32_residual_add)
+    planted = {**sp.step_deltas(bad_card, host), **pn.layer_deltas(bad_layers)}
+    rec["limits"], rec["f32_residual_add"] = limits, planted
+    rec["seconds"] = time.perf_counter() - t0
+    rec["f32_residual_add_beyond"] = sp.beyond(planted, limits)
+    print(f"train parity bf16 {h}² batch {batch}: {json.dumps(rec)}", flush=True)
+    print(f"train layers bf16 {h}² batch {batch}: {json.dumps(layers)}", flush=True)
+    bad = sp.beyond(rec, limits)
+    if bad:
+        fail(f"bf16 train step card vs cpu at {h}² batch {batch} beyond its limits in {bad}")
+    if not rec["f32_residual_add_beyond"]:
+        fail(f"bf16 train step at {h}² batch {batch}: the f32 residual add stays within "
+             "the limits")
+    return rec
+
+
+def bf16_eval_parity(device, limits) -> dict:
+    """The bf16 eval forward (seeded reference weights) on the card against
+    the CPU port, layer by layer, each layer given the CPU's input: image
+    mode on BATCH 256² images, and patch mode on one image's 841 windows,
+    whose stem runs csrc/stem_pool.cu on the card (held to the plain stem
+    at phase 2's tolerance; the layers after it start from the CPU's
+    stem).  The embeddings then go through csrc/knn.cu (a 700-row bank) and
+    csrc/knn_tiled.cu (a 2,048-row bank), each held against its plain
+    version (KNN_TOL).  Then the planted residual add, which must break
+    ``limits``."""
+    import torch
+
+    from ssad_tpu_torch.config import ModelConfig
+    from ssad_tpu_torch.models.peranet import build_model
+    from ssad_tpu_torch.ops import image as im
+    from ssad_tpu_torch.ops import knn, stem_pool
+    from ssad_tpu_torch.ops.patches import extract_patches
+    from ssad_tpu_torch.train import _pinning as pn
+    from ssad_tpu_torch.train import step_parity as sp
+
+    sd = reference_state_dict(0)
+    host_model, card_model = build_model(ModelConfig()), build_model(ModelConfig())
+    host_model.load_state_dict(sd)
+    card_model.load_state_dict(sd)
+    host_model.eval()
+    card_model.to(device).eval()
+    rng = np.random.default_rng(7)
+    x = im.normalize_imagenet(torch.from_numpy(synthetic_images(rng, BATCH)))
+    gen = torch.Generator(device=device).manual_seed(7)
+    banks = {"image": knn.l2_normalize(torch.randn(700, 512, generator=gen, device=device)),
+             "patch": knn.l2_normalize(torch.randn(2048, 512, generator=gen, device=device))}
+
+    def forward(model, arg, mode):
+        return model.from_stem(arg) if mode == "patch" else model(arg)
+
+    def pinned(mode, arg_host, arg_card, plant=None):
+        stem = mode == "image"
+        rec = pn.Recorder(pn.relu_names(host_model, stem), pn.conv_names(host_model, stem))
+        with torch.no_grad(), rec:
+            ref = forward(host_model, arg_host, mode)
+        pin = pn.Pinned(rec.decisions().to(device), teacher=True)
+        with torch.no_grad(), plant(card_model) if plant else contextlib.nullcontext(), pin:
+            got = forward(card_model, arg_card, mode)
+        deltas = {k: float((got[k].cpu() - ref[k]).abs().max())
+                  for k in ("latent_space", "classifier")}
+        return {**deltas, **pn.layer_deltas(pin.layers())}, pin.layers(), got["latent_space"]
+
+    out = {}
+    t0 = time.perf_counter()
+    # image mode
+    out["image"], image_layers, emb = pinned("image", x, x.to(device))
+    # patch mode: one image's windows, the stem on the card's kernel
+    windows = extract_patches(x[:1].to(torch.bfloat16), 32, 8).reshape(-1, 32, 32, 3)
+    affine = stem_pool.folded_stem_affine(host_model.state_dict())
+    host_stem = stem_pool.stem_pool_plain(windows, *affine)
+    card_stem = stem_pool.stem_pool_cuda(windows.to(device), *(t.to(device) for t in affine))
+    o, r = card_stem.float().cpu(), host_stem.float()
+    stem = {"windows": int(windows.shape[0]), "max_abs_err": float((o - r).abs().max()),
+            "flipped_share": float((o != r).float().mean())}
+    if not (stem["flipped_share"] < STEM_MAX_FLIPPED
+            and bool(torch.allclose(o, r, rtol=STEM_RTOL, atol=STEM_ATOL))):
+        fail(f"bf16 patch forward: the stem kernel vs plain {stem}")
+    out["patch"], patch_layers, patch_emb = pinned("patch", host_stem, host_stem.to(device))
+    out["patch"]["stem"] = stem
+    # every k-NN call against its plain version
+    knn_err = {
+        "image_knn": float((knn.knn_cosine_scores_cuda(emb, banks["image"], k=3)
+                            - knn.knn_cosine_scores_plain(emb, banks["image"], k=3)).abs().max()),
+        "patch_knn_tiled": float((knn.knn_cosine_scores_tiled_cuda(patch_emb, banks["patch"], k=3)
+                                  - knn.knn_cosine_scores_tiled_plain(patch_emb, banks["patch"],
+                                                                      k=3)).abs().max())}
+    out["knn_vs_plain"] = knn_err
+    if not max(knn_err.values()) <= KNN_TOL:
+        fail(f"bf16 forward: a k-NN kernel vs its plain version {knn_err}")
+    out["f32_residual_add"] = {
+        "image": pinned("image", x, x.to(device), pn.f32_residual_add)[0],
+        "patch": pinned("patch", host_stem, host_stem.to(device), pn.f32_residual_add)[0]}
+    out["limits"], out["seconds"] = limits, time.perf_counter() - t0
+    print(f"eval parity bf16: {json.dumps(out)}", flush=True)
+    print(f"eval layers bf16: {json.dumps({'image': image_layers, 'patch': patch_layers})}",
+          flush=True)
+    for mode in ("image", "patch"):
+        bad = sp.beyond(out[mode], limits)
+        if bad:
+            fail(f"bf16 {mode} forward card vs cpu beyond its limits in {bad}")
+        if not sp.beyond(out["f32_residual_add"][mode], limits):
+            fail(f"bf16 {mode} forward: the f32 residual add stays within the limits")
+    return out
+
+
+@contextlib.contextmanager
+def f32_result_convs(model):
+    """``model``'s bf16 convolutions (each instance's ``forward``) handing
+    their f32 accumulation to the BatchNorm, unrounded, as the JAX
+    package's program compiled for the CPU at XLA's default excess
+    precision computes them: an f32 cuDNN convolution of the bf16 values
+    (exact products; TF32 as the process's flags say), the cotangent
+    rounded to bf16, the input's gradient bf16, the weight's f32.  The
+    alternative ``bf16_alternatives`` measures."""
+    import torch
+    import torch.nn.functional as F
+
+    from ssad_tpu_torch.models.resnet import Conv2d
+
+    class F32Result(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, x, w, stride, padding):
+            xf, wf = x.float(), w.to(torch.bfloat16).float()
+            ctx.save_for_backward(xf, wf)
+            ctx.conv = (list(stride), list(padding))
+            return F.conv2d(xf, wf, None, stride, padding)
+
+        @staticmethod
+        def backward(ctx, g):
+            xf, wf = ctx.saved_tensors
+            gx, gw, _ = torch.ops.aten.convolution_backward(
+                g.to(torch.bfloat16).float(), xf, wf, None, *ctx.conv, [1, 1], False, [0, 0], 1,
+                [True, True, False])
+            return gx.to(torch.bfloat16), gw, None, None
+
+    convs = [m for m in model.modules() if isinstance(m, Conv2d)]
+    for m in convs:
+        m.forward = lambda x, m=m: F32Result.apply(x, m.weight, m.stride, m.padding)
+    try:
+        yield
+    finally:
+        for m in convs:
+            del m.forward
+
+
+def bf16_alternatives(device, data) -> list:
+    """The port's bf16 convolutions (a cuDNN bf16 convolution: the result
+    rounded to bf16, as the JAX source declares it) against
+    ``f32_result_convs`` with cuDNN's TF32 on and off, in the order A B C C
+    B A: ms per fine-tune step with the fill at 256², batch 96 (median of
+    TRAIN_TIMED warm steps, the draws uploaded beforehand), ms per eval
+    forward of BATCH 256² images and of BATCH images' 6,728 windows from
+    their stem (``from_stem``, the served patch path's; ``cuda_ms``), and
+    the largest |Δ| of those embeddings when the batch runs in reverse
+    order (a served row must not depend on its place in the batch)."""
+    import torch
+
+    from ssad_tpu_torch.config import DataConfig, ModelConfig, TrainConfig
+    from ssad_tpu_torch.models.peranet import build_model
+    from ssad_tpu_torch.ops import image as im
+    from ssad_tpu_torch.ops import stem_pool
+    from ssad_tpu_torch.ops.patches import extract_patches
+    from ssad_tpu_torch.train.trainer import Trainer, stage_generator
+
+    model = build_model(ModelConfig()).to(device).eval()
+    model.load_state_dict(reference_state_dict(0))
+    x = im.normalize_imagenet(torch.from_numpy(
+        synthetic_images(np.random.default_rng(12), BATCH))).to(device)
+    windows = extract_patches(x.to(torch.bfloat16), 32, 8).reshape(-1, 32, 32, 3)
+    stem = stem_pool.stem_pool_plain(windows, *stem_pool.folded_stem_affine(model.state_dict()))
+    cfg = TrainConfig(data=DataConfig(subject="bottle", imsize=(IMSIZE, IMSIZE),
+                                      batch_size=TRAIN_BATCH, min_dataset_length=TRAIN_MIN_LEN))
+
+    def reversed_gap(fn, inp):
+        return float((fn(inp) - fn(inp.flip(0)).flip(0)).abs().max())
+
+    ways = [("bf16_result", True, False), ("f32_result_tf32", True, True),
+            ("f32_result_no_tf32", False, True)]
+    out = []
+    for name, tf32, f32_result in ways + ways[::-1]:
+        prev = torch.backends.cudnn.allow_tf32
+        torch.backends.cudnn.allow_tf32 = tf32
+        try:
+            tr = Trainer(cfg, data, device)
+            with f32_result_convs(tr.model) if f32_result else contextlib.nullcontext():
+                state = tr.init_state("fine_tune", seed=0)
+                dd = tr.device_data("train")
+                gen = stage_generator(0, 2)
+                for _ in range(3):
+                    state, _ = tr.train_step(state, tr.upload_draws(gen, dd), dd, True)
+                ups = [tr.upload_draws(gen, dd) for _ in range(TRAIN_TIMED)]
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                times = []
+                for up in ups:
+                    torch.cuda.synchronize()
+                    start.record()
+                    state, _ = tr.train_step(state, up, dd, True)
+                    end.record()
+                    end.synchronize()
+                    times.append(start.elapsed_time(end))
+            with f32_result_convs(model) if f32_result else contextlib.nullcontext(), \
+                    torch.no_grad():
+                image_ms = cuda_ms(lambda: model(x), iters=50)
+                patch_ms = cuda_ms(lambda: model.from_stem(stem), iters=10)
+                image_gap = reversed_gap(lambda a: model(a)["latent_space"], x)
+                patch_gap = reversed_gap(lambda a: model.from_stem(a)["latent_space"], stem)
+        finally:
+            torch.backends.cudnn.allow_tf32 = prev
+        rec = {"convolutions": name, "cudnn_tf32": tf32, "step_ms": float(np.median(times)),
+               "step_ms_sorted": sorted(times), "canvas": IMSIZE, "batch": TRAIN_BATCH,
+               "image_forward_ms": image_ms, "patch_forward_ms": patch_ms,
+               "image_reversed_batch_max_abs": image_gap,
+               "patch_reversed_batch_max_abs": patch_gap,
+               "images": BATCH, "windows": int(windows.shape[0])}
+        print(f"bf16 alternatives: {json.dumps(rec)}", flush=True)
+        out.append(rec)
+    return out
+
+
+def drive_bf16_only(device, work: Path) -> None:
+    """``--bf16``: phase 6's bf16 checks alone (the step layer by layer at
+    64², batch 8 and 256², batch 16, the forward in both modes), then
+    ``bf16_alternatives``."""
+    from ssad_tpu_torch.data import mvtec
+    from ssad_tpu_torch.train import step_parity as sp
+
+    root = work / "synth_mvtec"
+    write_synth_tree(root)
+    data = mvtec.prepare_pretext_data(root, "bottle", imsize=(IMSIZE, IMSIZE),
+                                      val_fraction=0.2, seed=0)
+    bf16_step_parity(device, sp.disc_data(64), 8, sp.BF16_CARD_LIMITS)
+    bf16_step_parity(device, data, TRAIN_PARITY_BATCH, sp.BF16_TREE_256_LIMITS)
+    bf16_eval_parity(device, sp.BF16_EVAL_LIMITS)
+    bf16_alternatives(device, data)
+
+
 def time_train_stage(device, trainer, stage: str) -> dict:
     """ms per step (CUDA events; median of TRAIN_TIMED warm steps) with the
     draws uploaded beforehand and with the host draw + upload, images/s,
@@ -1351,7 +1623,12 @@ def drive_training(device, work: Path) -> dict:
               # the card test's step at the CPU limits, and full width on the tree
               "parity": [train_step_parity(device, sp.disc_data(64), 8, sp.CPU_LIMITS),
                          train_step_parity(device, data, TRAIN_PARITY_BATCH,
-                                           sp.TREE_256_LIMITS)]}
+                                           sp.TREE_256_LIMITS)],
+              # the default dtype, layer by layer: the step, then the forward
+              "parity_bf16": [bf16_step_parity(device, sp.disc_data(64), 8, sp.BF16_CARD_LIMITS),
+                              bf16_step_parity(device, data, TRAIN_PARITY_BATCH,
+                                               sp.BF16_TREE_256_LIMITS)],
+              "eval_bf16": bf16_eval_parity(device, sp.BF16_EVAL_LIMITS)}
 
     # one fill step with its draws uploaded, and no host sync
     trainer = Trainer(TrainConfig(data=cfg), data, device)
@@ -3159,6 +3436,14 @@ def main() -> int:
             if "registers" in line or "spill" in line or "Performance Loss" in line:
                 print(f"ptxas {name}: {line.strip()}", flush=True)
 
+    if "--bf16" in sys.argv[1:]:
+        work = Path(tempfile.mkdtemp(prefix=".chip_smoke_", dir=ROOT))
+        try:
+            drive_bf16_only(device, work)
+        finally:
+            shutil.rmtree(work, ignore_errors=True)
+        print(card_line(), flush=True)
+        return 0
     records = check_knn_kernel(device)
     stem_records = check_stem_kernel(device)
     tiled_records = check_tiled_kernel(device)

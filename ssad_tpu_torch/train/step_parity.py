@@ -22,11 +22,38 @@ the same in three runs: loss 2.4e-6, logits 2.3e-5, parameters and
 statistics 5.3e-5, gradients 3.75e-2 of scale, filled bank 5.5e-4,
 given-mask bank 5.7e-4); PERF.md §6 gives the runs and what a planted
 fault (TF32 on) reads against them.
+
+``BF16_CARD_LIMITS`` (64², batch 8), ``BF16_TREE_256_LIMITS`` (256²,
+batch 16) and ``BF16_EVAL_LIMITS`` (the eval forward, image and patch
+mode): the bf16 card step and forward against the CPU port's, each layer
+given the CPU's input (every ReLU output and convolution output) and the
+step's backward the CPU's cotangent at each of them
+(``reference_record``, ``pinned_record``), read per layer
+(``_pinning.Pinned.layers``, grouped by ``_pinning.layer_deltas``):
+``layer_*`` the backbone's ReLU inputs, ``conv_*`` its convolutions'
+outputs and ``cotangent_*`` its cotangents, in bf16 steps (share off,
+largest gap); ``head_*`` the f32 head's, in f32 steps.  About twice the
+card's readings (NVIDIA H100 80GB HBM3, 700 W; chip_smoke.py phase 6, or
+``python3 chip_smoke.py --bf16``): 64² loss 0, logits 6.3e-7,
+parameters and statistics 2.0e-5, gradients 3.2e-3 of scale (one bf16
+step of a bf16 weight gradient), given-mask bank 4.2e-3, ReLU inputs
+9.2e-5 off by ≤ 2 steps, convolutions 7.9e-4 off by ≤ 1 step, head 2,394
+f32 steps, cotangents 2.6e-3 off by ≤ 32 steps (head 688); 256² loss 0,
+logits 9.5e-7, parameters 3.9e-5, gradients 6.5e-3, given bank 1.8e-3,
+ReLU inputs 1.7e-4 off by ≤ 16 steps, convolutions 1.4e-3 off by ≤ 1,
+head 8,442, cotangents 3.2e-3 by ≤ 48 (head 832); the forward's ReLU
+inputs 2.7e-5 / 2.9e-5 off by ≤ 8 (image) / 1 (patch) steps,
+convolutions 1.4e-3 / 8.0e-4 off by ≤ 1, embeddings 3.6e-7 / 1.1e-6,
+logits 1.5e-7 / 4.3e-7, head 388 / 2,444.  cuDNN's and oneDNN's bf16
+convolutions sum in other orders, so about one output in a thousand
+rounds to the neighbouring bf16 value.  The planted ``f32_residual_add``
+reads 0.25–0.29 of ReLU inputs off by up to 63 steps.
 """
 
 from __future__ import annotations
 
-from typing import Dict, List, Optional
+import contextlib
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -34,6 +61,7 @@ import torch
 from ssad_tpu_torch.config import DataConfig, ModelConfig, TrainConfig
 from ssad_tpu_torch.data import masks
 from ssad_tpu_torch.data.mvtec import PretextData
+from ssad_tpu_torch.train._pinning import Decisions, Pinned, Recorder, conv_names, relu_names
 from ssad_tpu_torch.train.memory_bank import init_bank, insert
 from ssad_tpu_torch.train.trainer import Trainer, bank_fill_embeddings, stage_generator
 
@@ -43,6 +71,21 @@ CPU_LIMITS = {"loss": 5e-5, "logits": 3e-4, "state": 1e-5, "grad_rel": 3e-4,
               "bank": 1e-4, "given": 1e-4}
 TREE_256_LIMITS = {"loss": 5e-5, "logits": 3e-4, "state": 1.2e-4, "grad_rel": 8e-2,
                    "bank": 1.2e-3, "given": 1.2e-3}
+#: the bf16 step and forward on the card against the CPU port, each layer
+#: given the CPU's input and cotangent (``pinned_record``; chip_smoke.py
+#: phase 6), about twice the card's readings (module docstring)
+BF16_CARD_LIMITS = {"loss": 5e-7, "logits": 2e-6, "state": 4e-5, "grad_rel": 8e-3,
+                    "bank": 8e-3, "given": 8e-3, "layer_off": 2e-4, "layer_steps": 4.0,
+                    "conv_off": 2e-3, "conv_steps": 4.0, "head_steps": 5000.0,
+                    "cotangent_off": 6e-3, "cotangent_steps": 64.0,
+                    "head_cotangent_steps": 1500.0}
+BF16_TREE_256_LIMITS = {"loss": 5e-7, "logits": 2e-6, "state": 8e-5, "grad_rel": 1.3e-2,
+                        "bank": 5e-3, "given": 4e-3, "layer_off": 4e-4, "layer_steps": 32.0,
+                        "conv_off": 3e-3, "conv_steps": 4.0, "head_steps": 2e4,
+                        "cotangent_off": 8e-3, "cotangent_steps": 96.0,
+                        "head_cotangent_steps": 2000.0}
+BF16_EVAL_LIMITS = {"latent_space": 3e-6, "classifier": 1e-6, "layer_off": 6e-5,
+                    "layer_steps": 16.0, "conv_off": 3e-3, "conv_steps": 4.0, "head_steps": 5000.0}
 #: capacity of the filled bank and of the one that takes the given-mask insert
 BANK_ROWS = 16
 
@@ -63,22 +106,27 @@ def disc_data(size: int = 64, n: int = 6, seed: int = 0) -> PretextData:
                        fixed_count=count)
 
 
-def step_config(imsize, batch: int) -> TrainConfig:
-    """f32 (the parity step's dtype), the data's imsize, ``batch``."""
+def step_config(imsize, batch: int, compute_dtype: str = "float32") -> TrainConfig:
+    """The data's imsize, ``batch``; f32 unless ``compute_dtype`` says
+    otherwise."""
     return TrainConfig(data=DataConfig(subject="bottle", imsize=tuple(imsize),
                                        batch_size=batch, min_dataset_length=batch),
-                       model=ModelConfig(compute_dtype="float32", memory_bank_size=BANK_ROWS))
+                       model=ModelConfig(compute_dtype=compute_dtype, memory_bank_size=BANK_ROWS))
 
 
-def step_record(cfg: TrainConfig, data: PretextData, device) -> Dict:
+def step_record(cfg: TrainConfig, data: PretextData, device, mode=None, plant=None) -> Dict:
     """One fine-tune step (fill on) from the seed-0 init and the seed-0
     draws, then a given-mask insert of the batch's eval embeddings → host
-    f64 copies of what is compared."""
+    f64 copies of what is compared.  ``mode``: a ``Recorder`` or
+    ``Pinned`` the step runs under; ``plant``: a context made from the
+    trainer's model (``_pinning.f32_residual_add``) the step runs under."""
     trainer = Trainer(cfg, data, device)
     state = trainer.init_state("fine_tune", seed=0)
     dd = trainer.device_data("train")
     uploaded = trainer.upload_draws(stage_generator(0, 2), dd)
-    state, m = trainer.train_step(state, uploaded, dd, fill=True)
+    with plant(trainer.model) if plant is not None else contextlib.nullcontext(), \
+            mode if mode is not None else contextlib.nullcontext():
+        state, m = trainer.train_step(state, uploaded, dd, fill=True)
     _, _, orig = trainer.make_batch(dd, *uploaded)
     mask = torch.arange(orig.shape[0], device=orig.device) % 3 != 1
     given = insert(init_bank(BANK_ROWS, 512, orig.device),
@@ -120,3 +168,23 @@ def beyond(deltas: Dict[str, float], limits: Optional[Dict[str, float]] = None) 
     """The keys of ``deltas`` above their limit (CPU_LIMITS by default)."""
     limits = limits or CPU_LIMITS
     return [k for k, tol in limits.items() if not deltas[k] <= tol]
+
+
+def pinned_record(cfg: TrainConfig, data: PretextData, device, decisions: Decisions,
+                  plant=None) -> Tuple[Dict, Dict[str, Dict[str, float]]]:
+    """``step_record`` on ``device`` with every layer given the reference
+    run's input and cotangent (``Pinned`` with ``teacher`` and the
+    decisions' cotangents) → (record, per-layer readings); ``plant``: as
+    in ``step_record``."""
+    pin = Pinned(decisions.to(device), teacher=True)
+    rec = step_record(cfg, data, device, mode=pin, plant=plant)
+    return rec, pin.layers()
+
+
+def reference_record(cfg: TrainConfig, data: PretextData, device="cpu") -> Tuple[Dict, Decisions]:
+    """``step_record`` on ``device`` (the CPU port by default) with its
+    decisions recorded: every ReLU input and convolution output, and the
+    cotangent at each of them."""
+    model = Trainer(cfg, data, "cpu").model
+    rec = Recorder(relu_names(model), conv_names(model), cotangents=True)
+    return step_record(cfg, data, device, mode=rec), rec.decisions()

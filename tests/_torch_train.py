@@ -15,7 +15,6 @@ import numpy as np
 import optax
 import torch
 import torch.nn.functional as F
-from torch.overrides import TorchFunctionMode
 
 from ssad_tpu.config import DataConfig as JDataConfig
 from ssad_tpu.config import ModelConfig as JModelConfig
@@ -25,7 +24,8 @@ from ssad_tpu.models.peranet import init_model as jax_init_model
 from ssad_tpu.train import trainer as jtrainer
 from ssad_tpu.train.memory_bank import init_bank as jax_init_bank
 from ssad_tpu_torch.config import DataConfig, ModelConfig, OptimConfig, TrainConfig
-from ssad_tpu_torch.train.step_parity import CPU_LIMITS, GRAD_FLOOR
+from ssad_tpu_torch.train._pinning import Decisions, Pinned  # noqa: F401
+from ssad_tpu_torch.train.step_parity import CPU_LIMITS, GRAD_FLOOR  # noqa: F401
 from ssad_tpu_torch.train.trainer import Trainer
 from ssad_tpu_torch.utils.jax_bridge import (
     bank_from_numpy, load_optax_momentum, state_dict_from_jax,
@@ -44,13 +44,36 @@ _KW = dict(data=dict(imsize=(SIZE, SIZE), batch_size=BATCH, min_dataset_length=B
 
 def _jax_cfg(**model):
     return JTrainConfig(data=JDataConfig(**_KW["data"]),
-                        model=JModelConfig(**_KW["model"], **model),
+                        model=JModelConfig(**{**_KW["model"], **model}),
                         optim=JOptimConfig(**_KW["optim"]))
 
 
 def port_cfg(**model):
-    return TrainConfig(data=DataConfig(**_KW["data"]), model=ModelConfig(**_KW["model"], **model),
+    return TrainConfig(data=DataConfig(**_KW["data"]), model=ModelConfig(**{**_KW["model"], **model}),
                        optim=OptimConfig(**_KW["optim"]))
+
+
+#: XLA's ``xla_allow_excess_precision`` (on by default) lets a program keep
+#: a value's f32 source where its source code rounds it to bf16 and a later
+#: op reads it in f32; for the CPU that drops a bf16 convolution's rounding
+#: before the BatchNorm.  Off, the program rounds every value its source
+#: declares bf16, as op-by-op JAX does and the port does.
+DECLARED_PRECISION = {"xla_allow_excess_precision": False}
+
+
+def declared_jit(fn):
+    """``fn`` (a ``jax.jit`` function) compiled with ``DECLARED_PRECISION``,
+    once per signature of its arguments."""
+    compiled = {}
+
+    def call(*args):
+        leaves, tree = jax.tree.flatten(args)
+        key = (tree, tuple((jnp.shape(a), jnp.result_type(a)) for a in leaves))
+        if key not in compiled:
+            compiled[key] = fn.lower(*args).compile(compiler_options=DECLARED_PRECISION)
+        return compiled[key](*args)
+
+    return call
 
 
 #: what the trainers read of PretextData here: one epoch step of BATCH
@@ -70,10 +93,14 @@ def to_np(tree):
     return jax.tree.map(np.asarray, tree)
 
 
-def make_jax_side(init=None, **model):
+def make_jax_side(init=None, declared=True, **model):
     """The JAX init (or ``init``, another side's), and per stage the jitted
-    step with the given batch; ``model``: ModelConfig fields to override."""
+    step with the given batch; ``model``: ModelConfig fields to override.
+    A bf16 side's programs are compiled with ``DECLARED_PRECISION`` unless
+    ``declared`` is false (XLA's default)."""
     jt = jtrainer.Trainer(_jax_cfg(**model), _DATA)
+    bf16 = model.get("compute_dtype") == "bfloat16"
+    compile_ = declared_jit if bf16 and declared else (lambda f: f)
     if init is None:
         params, stats = jax.jit(lambda k: jax_init_model(jt.model, k, (1, SIZE, SIZE, 3)))(
             jax.random.key(0))
@@ -84,6 +111,7 @@ def make_jax_side(init=None, **model):
     # coords) carry (x, y, originals)
     jt._make_batch = lambda key, x, y, orig, counts, pool: (x, y, orig)
 
+    @compile_
     @jax.jit
     def loss_and_grads(params, stats, x, y):
         def loss_fn(p):
@@ -94,17 +122,20 @@ def make_jax_side(init=None, **model):
 
         return jax.value_and_grad(loss_fn, has_aux=True)(params)
 
+    steps = {}
+
     def step(stage, state, batch):
         """(new JAX state, loss, logits, grads) of one step on ``batch``."""
         x, y, orig = (jnp.asarray(a) for a in batch)
         y = y.astype(jnp.int32)
-        train_step, _, _, _ = jt._get_step_fns(stage)
+        train_step = steps.setdefault(stage, compile_(jt._get_step_fns(stage)[0]))
         (_, logits), grads = loss_and_grads(state.params, state.batch_stats, x, y)
         dummy = jnp.zeros((1,), jnp.float32)
         new, metrics = train_step(state, jax.random.key(1), x, y, orig, dummy, dummy,
                                   jnp.asarray(True))
         return new, float(metrics["loss"]), np.asarray(logits), to_np(grads)
 
+    @compile_
     @jax.jit
     def _intermediates(params, stats, x):
         _, st = jt.model.apply({"params": params, "batch_stats": stats}, x, train=True,
@@ -141,117 +172,68 @@ MAX_FLIPS = 4
 
 
 def _nchw(a):
-    return torch.from_numpy(np.ascontiguousarray(np.asarray(a).transpose(0, 3, 1, 2)))
+    """A captured JAX map (NHWC, f32 or bf16) as an NCHW tensor of its
+    dtype: bf16 is read through f32, which is exact."""
+    if a.dtype == jnp.bfloat16:
+        t = torch.from_numpy(np.asarray(a, np.float32)).to(torch.bfloat16)
+    else:
+        t = torch.from_numpy(np.array(a))
+    return t.permute(0, 3, 1, 2).contiguous()
+
+
+def block_decisions(blk, prev, stage, b):
+    """One captured JAX block's pre-activations in the port's ReLU order:
+    bn1 (and bn2 in a bottleneck), then the last BatchNorm + shortcut
+    recomputed as JAX adds them: in the compute dtype (in bf16 the f32
+    sum of the two bf16 addends rounded once, as ``torch``'s bf16 add
+    does), asserted to give the captured block output after the ReLU.
+    ``prev``: the block's input (NCHW).  → (relus, its convolutions'
+    outputs in the port's call order, block output)."""
+    inner, last = (("bn1", "bn2"), "bn3") if "bn3" in blk else (("bn1",), "bn2")
+    relus = [(f"layer{stage}.{b}.{bn}", _nchw(blk[bn]["__call__"][0])) for bn in inner]
+    short = _nchw(blk["downsample_bn"]["__call__"][0]) if "downsample_bn" in blk else prev
+    relus.append((f"layer{stage}.{b}.sum", _nchw(blk[last]["__call__"][0]) + short))
+    out = _nchw(blk["__call__"][0])
+    assert torch.equal(out, F.relu(relus[-1][1])), relus[-1][0]
+    # a port block computes its shortcut first
+    convs = [("downsample", "downsample_conv")] if "downsample_conv" in blk else []
+    convs += [(c, c) for c in ("conv1", "conv2", "conv3") if c in blk]
+    convs = [(f"layer{stage}.{b}.{n}", _nchw(blk[k]["__call__"][0])) for n, k in convs]
+    return relus, convs, out
 
 
 def jax_decisions(inter):
     """The JAX PeraNet train forward's pre-activations, in the order the
     port's forward applies its ReLUs: the stem's BatchNorm, then per block
-    bn1 and bn2 + shortcut (a basic block) or bn1, bn2 and bn3 + shortcut
-    (a bottleneck block; the residual sum recomputed in f32 from the
-    captured addends, which is the same IEEE add), then the latent MLP's
-    BatchNorms; and the stem max-pool's input.  Any stage depths."""
+    (``block_decisions``) bn1 and bn2 + shortcut (a basic block) or bn1,
+    bn2 and bn3 + shortcut (a bottleneck block), then the latent MLP's
+    BatchNorms; the stem max-pool's input; and every convolution's output
+    in the port's call order (used by ``Pinned(teacher=True)``).  Any
+    stage depths, f32 or bf16."""
     bb = inter["backbone"]
     stem = _nchw(bb["bn1"]["__call__"][0])
-    relus = [("stem", stem)]
+    relus, convs = [("stem", stem)], [("conv1", _nchw(bb["conv1"]["__call__"][0]))]
     prev = F.max_pool2d(F.relu(stem), 3, 2, 1)  # the max is exact
     for stage in range(1, 5):
         b = 0
         while f"layer{stage}_{b}" in bb:
-            blk = bb[f"layer{stage}_{b}"]
-            inner, last = (("bn1", "bn2"), "bn3") if "bn3" in blk else (("bn1",), "bn2")
-            for bn in inner:
-                relus.append((f"layer{stage}.{b}.{bn}", _nchw(blk[bn]["__call__"][0])))
-            short = (_nchw(blk["downsample_bn"]["__call__"][0]) if "downsample_bn" in blk
-                     else prev)
-            relus.append((f"layer{stage}.{b}.sum", _nchw(blk[last]["__call__"][0]) + short))
-            prev = _nchw(blk["__call__"][0])
-            assert torch.equal(prev, F.relu(relus[-1][1])), relus[-1][0]
+            block, block_convs, prev = block_decisions(bb[f"layer{stage}_{b}"], prev, stage, b)
+            relus += block
+            convs += block_convs
             b += 1
     i = 0
     while f"latent_{i}_bn" in inter:
         relus.append((f"latent.{i}", torch.tensor(np.asarray(inter[f"latent_{i}_bn"]["__call__"][0]))))
         i += 1
-    return types.SimpleNamespace(relus=relus, pool_in=F.relu(stem))
+    return Decisions(relus, F.relu(stem), convs)
 
 
-def _ulp(scale):
-    return 2.0 ** (np.floor(np.log2(scale)) - 23)
-
-
-def _round_mantissa(x, bits=10):
-    """``x`` rounded to ``bits`` mantissa bits (nearest, ties away), with
-    the gradient of the identity: TF32's rounding of a conv input."""
-    drop = 23 - bits
-    i = x.detach().contiguous().view(torch.int32)
-    r = ((i + (1 << (drop - 1))) & ~((1 << drop) - 1)).view(torch.float32)
-    return x + (r - x.detach())
-
-
-class Pinned(TorchFunctionMode):
-    """The port's train forward under the JAX forward's decisions: the
-    i-th ``F.relu`` passes exactly the units whose JAX pre-activation is
-    > 0, and the stem's ``F.max_pool2d`` takes each window's value at the
-    JAX input's argmax, so the backward routes every gradient term as the
-    JAX backward does.  Each pinned call records the port's own input.
-    Calls past the forward's (the bank fill's eval forward) run as they
-    are.  ``round_conv_inputs``: a planted fault that rounds every
-    ``F.conv2d`` input to 10 mantissa bits."""
-
-    def __init__(self, decisions, round_conv_inputs=False):
-        super().__init__()
-        self.d, self.round = decisions, round_conv_inputs
-        self.relus, self.pool = [], None
-
-    def __torch_function__(self, func, types_, args=(), kwargs=None):
-        kwargs = kwargs or {}
-        if func is F.relu and len(self.relus) < len(self.d.relus):
-            x = args[0]
-            ref = self.d.relus[len(self.relus)][1]
-            self.relus.append(x.detach().clone())
-            return torch.where(ref > 0, x, torch.zeros_like(x))
-        if func is F.max_pool2d and self.pool is None:
-            x = args[0]
-            _, idx = F.max_pool2d(self.d.pool_in, 3, 2, 1, return_indices=True)
-            self.pool = (x.detach().clone(), idx)
-            return x.flatten(2).gather(2, idx.flatten(2)).view(idx.shape)
-        if func is F.conv2d and self.round:
-            args = (_round_mantissa(args[0]),) + tuple(args[1:])
-        return func(*args, **kwargs)
-
-    def report(self):
-        """{flips: disagreeing units, band: the farthest one from the
-        boundary in units of its layer's spread (BAND_FACTOR), worst_layer,
-        spread_ulps: the largest layer spread in f32 ulps of that layer's
-        scale (the largest |pre-activation|)}."""
-        assert len(self.relus) == len(self.d.relus) and self.pool is not None
-        flips, band, worst, spread_ulps = 0, 0.0, None, 0.0
-        for (name, ref), got in zip(self.d.relus, self.relus):
-            off = (got > 0) != (ref > 0)
-            gap = float((got - ref).abs()[~off].max())
-            spread_ulps = max(spread_ulps, gap / _ulp(float(ref.abs().max())))
-            if off.any():
-                flips += int(off.sum())
-                far = float(torch.maximum(got[off].abs(), ref[off].abs()).max())
-                if far / gap > band:
-                    band, worst = far / gap, name
-        x, idx = self.pool
-        _, own = F.max_pool2d(x, 3, 2, 1, return_indices=True)
-        off = own != idx
-        if off.any():
-            flips += int(off.sum())
-            xf = x.flatten(2)
-            tie = (xf.gather(2, own.flatten(2)) - xf.gather(2, idx.flatten(2))).view(idx.shape)
-            ratio = float(tie[off].max()) / float((x - self.d.pool_in).abs().max())
-            if ratio > band:
-                band, worst = ratio, "maxpool"
-        return {"flips": flips, "band": band, "worst_layer": worst, "spread_ulps": spread_ulps}
-
-
-def port_step(stage, params, stats, batch, optax_state=None, bank=None, pin=None, **model):
+def port_step(stage, params, stats, batch, optax_state=None, bank=None, pin=None, plant=None,
+              **model):
     """The port's step from JAX variables → (trainer, metrics, state);
-    ``pin``: a ``Pinned`` mode the step runs under; ``model``: ModelConfig
-    fields to override."""
+    ``pin``: a ``Pinned`` mode the step runs under; ``plant``: a context
+    made from the trainer's model that it runs under; ``model``:
+    ModelConfig fields to override."""
     tr = Trainer(port_cfg(**model), _DATA, "cpu")
     tr.model.load_state_dict(state_dict_from_jax(params, stats), strict=True)
     state = tr.make_state(stage)
@@ -261,7 +243,8 @@ def port_step(stage, params, stats, batch, optax_state=None, bank=None, pin=None
         state.bank = bank
     x, y, orig = (torch.from_numpy(a) for a in batch)
     tr.make_batch = lambda dd, idx, draws: (x, y, orig)
-    with pin if pin is not None else contextlib.nullcontext():
+    with plant(tr.model) if plant is not None else contextlib.nullcontext(), \
+            pin if pin is not None else contextlib.nullcontext():
         state, metrics = tr.train_step(state, (None, None), None, fill=True)
     return tr, metrics, state
 

@@ -13,6 +13,15 @@ eval embeddings under a given mask.  Limits: ``CPU_LIMITS``, those of the
 CPU parity tests against JAX: loss 5e-5, logits 3e-4, parameters and
 statistics 1e-5, bank rows 1e-4, the gradients 3e-4 of each tensor's
 largest |g| (at least 1e-3).
+
+The bf16 step, layer by layer (``test_card_bf16_step_matches_the_cpu_step_
+layer_by_layer``): the CPU step records every ReLU input and convolution
+output and the cotangent at each
+(``step_parity.reference_record``); the card step runs with each layer
+given the CPU's input and cotangent (``pinned_record``), so each layer's
+own rounding is read, under ``BF16_CARD_LIMITS`` (measured on the card,
+step_parity.py), with cuDNN's TF32 on (PyTorch's default) and off, which
+no bf16 convolution reads; the planted f32 residual add must break them.
 """
 
 import dataclasses
@@ -21,6 +30,7 @@ import pytest
 import torch
 from _torch_port import cuda_device  # noqa: F401  (fixture)
 
+from ssad_tpu_torch.train import _pinning as pn
 from ssad_tpu_torch.train import step_parity as sp
 from ssad_tpu_torch.train.trainer import Trainer, stage_generator
 
@@ -59,3 +69,21 @@ def test_a_fill_step_runs_without_host_sync(cuda_device, compute_dtype):
         torch.cuda.set_sync_debug_mode("default")
     torch.cuda.synchronize()
     assert bool(torch.isfinite(m["loss"])) and state.optimizer.count == 2
+
+
+@pytest.mark.parametrize("cudnn_tf32", [True, False])
+def test_card_bf16_step_matches_the_cpu_step_layer_by_layer(cuda_device, cudnn_tf32):
+    data, cfg = sp.disc_data(SIZE), sp.step_config((SIZE, SIZE), BATCH, "bfloat16")
+    prev = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = False, cudnn_tf32
+    try:
+        host, decisions = sp.reference_record(cfg, data)
+        card, layers = sp.pinned_record(cfg, data, cuda_device, decisions)
+        bad, bad_layers = sp.pinned_record(cfg, data, cuda_device, decisions,
+                                           plant=pn.f32_residual_add)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = prev
+    reading = {**sp.step_deltas(card, host), **pn.layer_deltas(layers)}
+    assert not sp.beyond(reading, sp.BF16_CARD_LIMITS), reading
+    planted = {**sp.step_deltas(bad, host), **pn.layer_deltas(bad_layers)}
+    assert "layer_off" in sp.beyond(planted, sp.BF16_CARD_LIMITS), planted
