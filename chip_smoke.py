@@ -70,7 +70,16 @@ the batch.)  It imports nothing of JAX or of the JAX package.  Phases
    embeddings through the plain tiled k-NN to 1e-5, every heatmap is a
    256×256 PNG, and the f32 model's patch embeddings on the card match
    the CPU port's to 1e-3.
-5. Drive the CutPaste pretext synthesizer (the trainer's batch maker) at
+5. The host's object masks first (``masks:``): the port's
+   ``object_mask`` / ``subject_mask`` (numpy + scipy, no OpenCV) over the
+   seeded 256² ``mask_corpus`` (the ten object subjects of the parity
+   generator, discs on noise σ 0–10 and on a smooth texture, a border
+   object, a ring, a thin bar, two objects of different and of equal
+   size, a blank image, four cable images posterized with seed 0): ms
+   per image, and the SHA-256 of the masks' bytes, which must equal
+   ``MASK_DIGEST`` (tests/test_torch_masks.py pins the same constant: the
+   JAX package's OpenCV path gives those bytes on the non-cable images).
+   Then drive the CutPaste pretext synthesizer (the trainer's batch maker) at
    DataConfig's batch of 96: a seeded 256² MVTec-layout tree of 12
    train-good PNGs per category (bottle, hazelnut, screw, carpet);
    ``prepare_pretext_data`` (object masks on the host), then five cases:
@@ -1019,6 +1028,130 @@ def drive_patch_path(device, work: Path, seed: int = 1):
 SYNTH_TREE = ("bottle", "hazelnut", "screw", "carpet", "cable")
 
 
+#: the object-mask corpus: (name, subject) of each image; ``mask_corpus``
+#: draws each from its own seed (its place here)
+MASK_CORPUS = (
+    ("bottle", "bottle"), ("cable_plain", "bottle"), ("capsule", "capsule"),
+    ("hazelnut", "hazelnut"), ("metal_nut", "metal_nut"), ("pill", "pill"),
+    ("screw", "screw"), ("toothbrush", "toothbrush"), ("transistor", "transistor"),
+    ("zipper", "zipper"), ("disc_noise0", "bottle"), ("disc_noise2", "bottle"),
+    ("disc_noise4", "bottle"), ("disc_noise6", "bottle"), ("disc_noise10", "bottle"),
+    ("disc_smooth_texture", "bottle"), ("at_border", "bottle"), ("ring", "metal_nut"),
+    ("thin_bar", "screw"), ("two_unequal", "bottle"), ("two_equal", "bottle"),
+    ("blank", "bottle"), ("cable0", "cable"), ("cable1", "cable"),
+    ("cross_section0", "cable"), ("cross_section1", "cable"),
+)
+#: SHA-256 of the bytes of ``corpus_masks(256)``, in ``MASK_CORPUS`` order:
+#: the port's masks; the JAX package's OpenCV path gives the same bytes on
+#: every non-cable image (tests/test_torch_masks.py pins this constant)
+MASK_DIGEST = "b0be4d21844a16d9f3c4db3ef9751fad6e43c4aab2e0b8431149ec91df9e8f2e"
+
+
+def mask_corpus_image(name: str, size: int) -> np.ndarray:
+    """One seeded RGB uint8 image of ``MASK_CORPUS`` at size × size."""
+    from ssad_tpu_torch import constants, parity
+
+    rng = np.random.default_rng(1000 + [n for n, _ in MASK_CORPUS].index(name))
+    generated = {"cable_plain": "cable", "cable0": "cable", "cable1": "cable"}
+    if name in generated or name in constants.OBJECTS:
+        return parity._make_image(rng, generated.get(name, name), size)
+    yy, xx = np.mgrid[0:size, 0:size].astype(np.float64)
+
+    def disc(cy, cx, r):
+        return (yy - cy) ** 2 + (xx - cx) ** 2 < r**2
+
+    img = np.full((size, size, 3), 90.0)
+    if name.startswith("disc_noise"):
+        img[disc(size * 0.5 + 3 * size / 256, size * 0.47, size * 0.27)] += 80
+        img += rng.normal(0, float(name[len("disc_noise"):]), img.shape)
+    elif name == "disc_smooth_texture":
+        img += (18 * np.sin(xx * 256 / (13 * size) + rng.uniform(0, 6))
+                + 14 * np.cos(yy * 256 / (19 * size)))[..., None]
+        img[disc(size * 0.52, size * 0.5, size * 0.3)] += 70
+        img += rng.normal(0, 2, img.shape)
+    elif name == "at_border":
+        img[disc(size * 0.45, size * 0.08, size * 0.3)] += 90
+        img += rng.normal(0, 3, img.shape)
+    elif name == "ring":
+        d = np.hypot(yy - size * 0.5, xx - size * 0.52)
+        img[(d < size * 0.32) & (d > size * 0.14)] = (150, 140, 120)
+        img += rng.normal(0, 4, img.shape)
+    elif name == "thin_bar":
+        t = np.deg2rad(rng.uniform(20, 70))
+        u = (xx - size / 2) * np.cos(t) + (yy - size / 2) * np.sin(t)
+        v = (yy - size / 2) * np.cos(t) - (xx - size / 2) * np.sin(t)
+        img[(np.abs(u) < size * 0.32) & (np.abs(v) < max(2.0, size * 0.025))] = 200
+        img += rng.normal(0, 3, img.shape)
+    elif name == "two_unequal":
+        img[disc(size * 0.3, size * 0.3, size * 0.16)] += 80
+        img[disc(size * 0.68, size * 0.66, size * 0.22)] += 80
+        img += rng.normal(0, 3, img.shape)
+    elif name == "two_equal":
+        # one disc pasted twice, the left copy a row lower: the masks' two
+        # components have equal areas, their first rows (even, then odd)
+        # lie in one row of 2×2 blocks, so OpenCV's numbering (by block)
+        # picks the left one where a raster order of pixels picks the right
+        r = int(size * 0.12)
+        py, px = np.mgrid[0:2 * r + 8, 0:2 * r + 8]
+        patch = (((py - r - 4) ** 2 + (px - r - 4) ** 2 < r * r) * 80.0)[..., None]
+        y0, n = {64: 10, 256: 39}[size], 2 * r + 8
+        img[y0:y0 + n, int(size * 0.6):int(size * 0.6) + n] += patch
+        img[y0 + 1:y0 + 1 + n, int(size * 0.1):int(size * 0.1) + n] += patch
+    elif name.startswith("cross_section"):  # a cable's three insulated wires
+        img[:] = (60, 58, 52)
+        c = size * 0.5
+        img[disc(c, c, size * 0.42)] = (175, 170, 160)
+        for k, colour in enumerate([(40, 130, 60), (40, 70, 150), (120, 80, 50)]):
+            a = 2 * np.pi * k / 3 + rng.uniform(-0.2, 0.2)
+            cy, cx = c + size * 0.19 * np.sin(a), c + size * 0.19 * np.cos(a)
+            img[disc(cy, cx, size * 0.14)] = colour
+            img[disc(cy, cx, size * 0.07)] = (190, 150, 90)
+        img += rng.normal(0, 5, img.shape)
+    elif name != "blank":
+        raise KeyError(name)
+    return np.clip(np.rint(img), 0, 255).astype(np.uint8)
+
+
+def corpus_masks(size: int) -> list:
+    """The port's ``subject_mask(image, subject)`` of every ``MASK_CORPUS``
+    image at ``size``."""
+    from ssad_tpu_torch.data.masks import subject_mask
+
+    return [subject_mask(mask_corpus_image(name, size), subject)
+            for name, subject in MASK_CORPUS]
+
+
+def mask_digest(masks) -> str:
+    import hashlib
+
+    return hashlib.sha256(b"".join(np.ascontiguousarray(m).tobytes() for m in masks)).hexdigest()
+
+
+def drive_masks() -> dict:
+    """Phase 5a: the port's object masks over the 256² corpus on this
+    host: ms per image (object and cable separately) and the digest, held
+    to ``MASK_DIGEST``."""
+    from ssad_tpu_torch.data import masks
+
+    images = [(mask_corpus_image(name, IMSIZE), subject) for name, subject in MASK_CORPUS]
+    out, ms = [], {"object": [], "cable": []}
+    for img, subject in images:
+        t0 = time.perf_counter()
+        out.append(masks.subject_mask(img, subject))
+        ms["cable" if subject == "cable" else "object"].append(
+            (time.perf_counter() - t0) * 1e3)
+    rec = {"images": len(images), "size": IMSIZE, "digest": mask_digest(out),
+           "pinned": MASK_DIGEST,
+           "ms_per_object_mask": float(np.median(ms["object"])),
+           "ms_per_cable_mask": float(np.median(ms["cable"])),
+           "ms_sorted": {k: sorted(v) for k, v in ms.items()},
+           "mask_share": [float(m.mean()) for m in out]}
+    print(f"masks: {json.dumps(rec)} ({card_line()})", flush=True)
+    if rec["digest"] != MASK_DIGEST:
+        fail(f"masks: digest {rec['digest']} != the pinned {MASK_DIGEST}")
+    return rec
+
+
 def write_synth_tree(root: Path, seed: int = 3, images: int = SYNTH_IMAGES) -> None:
     """A seeded MVTec-layout tree of ``images`` 256² train-good PNGs per
     category: a bright disc on a noisy gradient for the objects (moving
@@ -1081,12 +1214,12 @@ def drive_synthesis(device, work: Path) -> dict:
 
     cfg = DataConfig()
     batch = cfg.batch_size
+    records = {"masks": drive_masks()}
     root = work / "synth_mvtec"
     t0 = time.perf_counter()
     write_synth_tree(root)
     print(f"synth data: {len(SYNTH_TREE) * SYNTH_IMAGES} PNGs in {time.perf_counter() - t0:.2f} s",
           flush=True)
-    records = {}
     for subject, patch in SYNTH_CASES:
         case = f"{subject}_{'patch' if patch else 'image'}"
         t0 = time.perf_counter()

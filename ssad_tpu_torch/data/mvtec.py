@@ -7,12 +7,12 @@ Counterpart of ssad_tpu/data/mvtec.py:25-38 (load_image), :41-50
 the split images with the cut pool and object masks the pretext
 synthesizer reads) and :221-252 (MVTecTestData,
 prepare_mvtec_test_data).  ``load_split`` is the split images alone,
-which is all the patch export reads; ``data.masks`` (OpenCV) is imported
-only where masks are made.  ``load_stack`` and ``load_mask_stack`` decode
-through the native threaded loader (ssad_tpu_torch/native) when it is
-built, and through PIL otherwise and for the files it leaves to PIL
-(palette, alpha and 16-bit PNGs, decode failures), as the JAX package's
-do.
+which is all the patch export reads; ``data.masks`` (the OpenCV mask
+pipeline in numpy and scipy) is imported only where masks are made.
+``load_stack`` and ``load_mask_stack`` decode through the native
+threaded loader (ssad_tpu_torch/native) when it is built, and through
+PIL otherwise and for the files it leaves to PIL (palette, alpha and
+16-bit PNGs, decode failures), as the JAX package's do.
 """
 
 from __future__ import annotations

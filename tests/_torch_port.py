@@ -45,18 +45,5 @@ def cuda_device():
     return torch.device("cuda")
 
 
-@pytest.fixture(scope="module", autouse=True)
-def jax_masks_on_the_numpy_path():
-    """Imported into a test module, puts the JAX package's object masks
-    on their numpy path for that module's tests: the one path the port
-    has (ssad_tpu_torch/data/masks.py), so both packages segment the same
-    objects whether OpenCV is installed or not."""
-    from ssad_tpu.data import masks as jmasks
-
-    with pytest.MonkeyPatch.context() as mp:
-        mp.setattr(jmasks, "_HAS_CV2", False)
-        yield
-
-
 def seeded(shape, seed, low=0.0, high=1.0):
     return np.random.default_rng(seed).uniform(low, high, shape).astype(np.float32)

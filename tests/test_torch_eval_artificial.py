@@ -14,13 +14,16 @@ defect drawn elsewhere or missing, moves pixels by far more than two
 ulps.  The logits and embeddings equal the JAX model's on the port's own
 batch within the f32 model's 1e-5 (tests/test_torch_models.py), and the
 port's own draws are seeded.
-"""
+
+The JAX package's object masks here are its OpenCV path's, which the
+port computes bit for bit without OpenCV: these comparisons need
+OpenCV on the machine that runs the tests (without it the JAX package
+takes its numpy fallback, which the port does not compute)."""
 
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
-from _torch_port import jax_masks_on_the_numpy_path  # noqa: F401  (autouse fixture)
 from _torch_eval import IMSIZE, MODEL_TOL, jax_artificial_batches, jax_engine, seeded_state_dict
 
 from ssad_tpu.config import AugConfig as JAugConfig

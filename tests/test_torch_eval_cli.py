@@ -11,10 +11,14 @@ level and ``infer``: tests/test_torch_eval_cli_patch.py.  ``--scorer
 mahalanobis`` and ``--coreset`` run and write the same files (their JAX
 parity: tests/test_torch_scorer_cli*.py); both sharding flags at once, and
 more shards than devices, are refused (tests/test_torch_parallel_*.py
-hold the sharded runs)."""
+hold the sharded runs).
+
+The JAX package's object masks here are its OpenCV path's, which the
+port computes bit for bit without OpenCV: these comparisons need
+OpenCV on the machine that runs the tests (without it the JAX package
+takes its numpy fallback, which the port does not compute)."""
 
 import pytest
-from _torch_port import jax_masks_on_the_numpy_path  # noqa: F401  (autouse fixture)
 from _torch_eval import (
     IMSIZE, assert_tables_match, files_under, seeded_state_dict, with_jax_draws,
     write_checkpoints,

@@ -9,11 +9,15 @@ test_torch_evaluator_patch.py).  With ``--scorer mahalanobis`` or
 numbers are held to that 1e-3 as well (the maps agree within the patch
 path's tolerance, so a printed digit may round the other way: AUPRO
 0.4506 against 0.4507 with the coreset).  ``cli infer``:
-tests/test_torch_infer_cli.py and tests/test_torch_scorer_infer_cli.py."""
+tests/test_torch_infer_cli.py and tests/test_torch_scorer_infer_cli.py.
+
+The JAX package's object masks here are its OpenCV path's, which the
+port computes bit for bit without OpenCV: these comparisons need
+OpenCV on the machine that runs the tests (without it the JAX package
+takes its numpy fallback, which the port does not compute)."""
 
 import numpy as np
 import pytest
-from _torch_port import jax_masks_on_the_numpy_path  # noqa: F401  (autouse fixture)
 from _torch_eval import (
     IMSIZE, assert_tables_match, files_under, seeded_state_dict, table_parts, with_jax_draws,
     write_checkpoints,

@@ -12,12 +12,15 @@ sides (``_torch_eval``):
   values to rtol 5e-3 / atol 1e-4 (the patch path's), and ``upsample``
   of them to the same;
 * ``predict_artificial``: tests/test_torch_eval_artificial.py.
-"""
+
+The JAX package's object masks here are its OpenCV path's, which the
+port computes bit for bit without OpenCV: these comparisons need
+OpenCV on the machine that runs the tests (without it the JAX package
+takes its numpy fallback, which the port does not compute)."""
 
 import numpy as np
 import pytest
 import torch
-from _torch_port import jax_masks_on_the_numpy_path  # noqa: F401  (autouse fixture)
 from _torch_eval import IMSIZE, MODEL_TOL, jax_engine, jax_perm, seeded_state_dict
 
 from ssad_tpu.data import mvtec as jm

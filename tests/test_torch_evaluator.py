@@ -14,13 +14,17 @@ macro F1 and per-class rows equal, its good-vs-defect AUROC 2e-3
 tests/test_torch_eval_artificial.py, and this untrained model's p(good)
 are nearly tied, so small differences reorder them).  The files are the
 JAX evaluator's, ``<subject>_tsne.png`` among them (each package's own
-t-SNE: tests/test_torch_tsne.py holds the port's)."""
+t-SNE: tests/test_torch_tsne.py holds the port's).
+
+The JAX package's object masks here are its OpenCV path's, which the
+port computes bit for bit without OpenCV: these comparisons need
+OpenCV on the machine that runs the tests (without it the JAX package
+takes its numpy fallback, which the port does not compute)."""
 
 import dataclasses
 
 import pytest
 import torch
-from _torch_port import jax_masks_on_the_numpy_path  # noqa: F401  (autouse fixture)
 from _torch_eval import (
     IMSIZE, files_under, jax_artificial_batches, jax_engine, jax_perm, seeded_state_dict,
 )

@@ -35,14 +35,17 @@ Held, with the spread measured over four CPU settings (default AMX-BF16,
   optimal-F1 threshold, which jumps between runs of tied pixels: |Δ|
   2.7e-3 to 3.4e-3), as the JAX package's oracles compute them from the
   port's own maps: the same maps give the same number.
-"""
+
+The JAX package's object masks here are its OpenCV path's, which the
+port computes bit for bit without OpenCV: these comparisons need
+OpenCV on the machine that runs the tests (without it the JAX package
+takes its numpy fallback, which the port does not compute)."""
 
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 from _torch_eval import IMSIZE, seeded_state_dict, with_jax_draws
-from _torch_port import jax_masks_on_the_numpy_path  # noqa: F401  (autouse fixture)
 from _torch_port import jax_variables
 
 from ssad_tpu.config import EvalConfig as JEvalConfig

@@ -9,11 +9,15 @@ same from the fused program on the CPU (``device_metrics=True``) within
 the JAX program's bounds of the oracles (2e-4, AUPRO 3e-4); the curves'
 endpoints; every file the JAX sweep writes, the score tables with the
 same labels and layout and numbers within 1e-3 plus one unit of their
-last digit."""
+last digit.
+
+The JAX package's object masks here are its OpenCV path's, which the
+port computes bit for bit without OpenCV: these comparisons need
+OpenCV on the machine that runs the tests (without it the JAX package
+takes its numpy fallback, which the port does not compute)."""
 
 import numpy as np
 import pytest
-from _torch_port import jax_masks_on_the_numpy_path  # noqa: F401  (autouse fixture)
 from _torch_eval import (
     IMSIZE, assert_tables_match, files_under, seeded_state_dict, with_jax_draws,
     write_checkpoints,

@@ -5,13 +5,17 @@ JAX fit permutation: the same JSON line but for the threshold and the
 path, the threshold within the path's tolerance (1e-5 image, rtol 5e-3 /
 atol 1e-4 patch: tests/test_torch_eval_inference.py), and
 ``inference.npz`` with the JAX keys and shapes, labels equal and the
-anomaly scores or maps within the same tolerance."""
+anomaly scores or maps within the same tolerance.
+
+The JAX package's object masks here are its OpenCV path's, which the
+port computes bit for bit without OpenCV: these comparisons need
+OpenCV on the machine that runs the tests (without it the JAX package
+takes its numpy fallback, which the port does not compute)."""
 
 import json
 
 import numpy as np
 import pytest
-from _torch_port import jax_masks_on_the_numpy_path  # noqa: F401  (autouse fixture)
 from _torch_eval import IMSIZE, seeded_state_dict, with_jax_draws, write_checkpoints
 
 from ssad_tpu import cli as jcli

@@ -20,13 +20,16 @@ Held:
   keeps the outer pixel on two sides of a shape, the inner one on the
   other two), or, without OpenCV, the hand-computed border;
 ``cli localize``: tests/test_torch_localizer_cli.py.
-"""
+
+The JAX package's object masks here are its OpenCV path's, which the
+port computes bit for bit without OpenCV: these comparisons need
+OpenCV on the machine that runs the tests (without it the JAX package
+takes its numpy fallback, which the port does not compute)."""
 
 import numpy as np
 import pytest
 import torch
 from _torch_eval import IMSIZE, jax_engine, jax_perm, seeded_state_dict
-from _torch_port import jax_masks_on_the_numpy_path  # noqa: F401  (autouse fixture)
 
 from ssad_tpu.config import EvalConfig as JEvalConfig
 from ssad_tpu.data import mvtec as jm

@@ -5,13 +5,17 @@ write_checkpoints``), the port on ``--device cpu``: for the same
 ``--seed`` both print and write the same panel files
 (``<subject>_<defect>_<stem>_panel.png``; the test images are sampled by
 ``np.random.default_rng(seed)`` in both), at both levels.  The maps
-themselves: tests/test_torch_localizer.py."""
+themselves: tests/test_torch_localizer.py.
+
+The JAX package's object masks here are its OpenCV path's, which the
+port computes bit for bit without OpenCV: these comparisons need
+OpenCV on the machine that runs the tests (without it the JAX package
+takes its numpy fallback, which the port does not compute)."""
 
 import numpy as np
 import pytest
 import torch
 from _torch_eval import IMSIZE, seeded_state_dict, write_checkpoints
-from _torch_port import jax_masks_on_the_numpy_path  # noqa: F401  (autouse fixture)
 
 from ssad_tpu.evaluation import visualization as jvis
 from ssad_tpu_torch import cli

@@ -8,13 +8,17 @@ messages; the evaluation half of ``run_parity`` (both packages skip
 training on checkpoints of the same f32 weights, the port draws as JAX
 does) at image level (``_torch_parity.check_evaluation_half``; patch
 level and a whole port run: tests/test_torch_parity_patch.py).  Each
-test makes its own seeded data (not conftest's shared ``rng``)."""
+test makes its own seeded data (not conftest's shared ``rng``).
+
+The JAX package's object masks here are its OpenCV path's, which the
+port computes bit for bit without OpenCV: these comparisons need
+OpenCV on the machine that runs the tests (without it the JAX package
+takes its numpy fallback, which the port does not compute)."""
 
 import json
 
 import pytest
 import torch
-from _torch_port import jax_masks_on_the_numpy_path  # noqa: F401  (autouse fixture)
 from _torch_eval import files_under
 from _torch_parity import check_evaluation_half
 

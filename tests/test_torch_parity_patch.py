@@ -2,13 +2,17 @@
 the evaluation half of ``run_parity`` at patch level against the JAX
 package's (``_torch_parity.check_evaluation_half``), and a tiny port-only
 run that trains, writes ``best_model.ckpt`` and its fingerprint, and
-skips training when rerun."""
+skips training when rerun.
+
+The JAX package's object masks here are its OpenCV path's, which the
+port computes bit for bit without OpenCV: these comparisons need
+OpenCV on the machine that runs the tests (without it the JAX package
+takes its numpy fallback, which the port does not compute)."""
 
 import functools
 import json
 
 import torch
-from _torch_port import jax_masks_on_the_numpy_path  # noqa: F401  (autouse fixture)
 from _torch_parity import check_evaluation_half
 
 from ssad_tpu_torch import parity

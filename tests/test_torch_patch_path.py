@@ -12,7 +12,11 @@ Same weights (f32 model), images and banks on both sides, 64×64 images
 * ``export --mode patch`` → ``ServedScorer``: its normality matches JAX's
   patch normality, its maps match JAX's engine with the same bank;
 * the HTTP payload and ``cli score --heatmaps`` follow the JAX versions.
-"""
+
+The JAX package's object masks here are its OpenCV path's, which the
+port computes bit for bit without OpenCV: these comparisons need
+OpenCV on the machine that runs the tests (without it the JAX package
+takes its numpy fallback, which the port does not compute)."""
 
 import base64
 import csv
@@ -25,7 +29,6 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
-from _torch_port import jax_masks_on_the_numpy_path  # noqa: F401  (autouse fixture)
 from _torch_port import jax_variables, seeded
 from test_ref_checkpoint import reference_state_dict
 

@@ -8,12 +8,16 @@ agree to 2e-5 relative: tests/test_torch_scorer_infer_cli.py says why).
 The synthetic pretext report, which no scorer reaches, is left out on
 both sides (tests/test_torch_eval_cli.py holds it).  Patch level:
 tests/test_torch_eval_cli_patch.py; ``infer``:
-tests/test_torch_scorer_infer_cli.py."""
+tests/test_torch_scorer_infer_cli.py.
+
+The JAX package's object masks here are its OpenCV path's, which the
+port computes bit for bit without OpenCV: these comparisons need
+OpenCV on the machine that runs the tests (without it the JAX package
+takes its numpy fallback, which the port does not compute)."""
 
 import functools
 
 import pytest
-from _torch_port import jax_masks_on_the_numpy_path  # noqa: F401  (autouse fixture)
 from _torch_eval import (
     IMSIZE, assert_tables_match, seeded_state_dict, with_jax_draws, write_checkpoints,
 )

@@ -10,10 +10,14 @@ relative: the normality is fake_mvtec's train images, 3 rows after the
 split in 512 dimensions, so the shrunk covariance has a condition number
 of about 2e3 and the JAX package's f32 inverse is off by about that
 times f32's epsilon (measured 1.9e-5 relative; the port fits in
-float64).  Patch level: tests/test_torch_scorer_infer_cli_patch.py."""
+float64).  Patch level: tests/test_torch_scorer_infer_cli_patch.py.
+
+The JAX package's object masks here are its OpenCV path's, which the
+port computes bit for bit without OpenCV: these comparisons need
+OpenCV on the machine that runs the tests (without it the JAX package
+takes its numpy fallback, which the port does not compute)."""
 
 import pytest
-from _torch_port import jax_masks_on_the_numpy_path  # noqa: F401  (autouse fixture)
 from _torch_eval import infer_scorer_against_jax, seeded_state_dict, write_checkpoints
 
 #: image normality: fake_mvtec's train images, 3 train rows after the split

@@ -4,10 +4,14 @@
 tests/test_torch_scorer_infer_cli.py does at image level).  The threshold
 and maps are held to the patch path's rtol 5e-3 / atol 1e-4
 (tests/test_torch_infer_cli.py's): the stem rounds to bf16 in another
-order on each side."""
+order on each side.
+
+The JAX package's object masks here are its OpenCV path's, which the
+port computes bit for bit without OpenCV: these comparisons need
+OpenCV on the machine that runs the tests (without it the JAX package
+takes its numpy fallback, which the port does not compute)."""
 
 import pytest
-from _torch_port import jax_masks_on_the_numpy_path  # noqa: F401  (autouse fixture)
 from _torch_eval import infer_scorer_against_jax, seeded_state_dict, write_checkpoints
 
 #: patch normality: 3 images × 25 windows = 75 rows → 53 train rows

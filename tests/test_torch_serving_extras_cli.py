@@ -15,7 +15,12 @@ is the artifact's ``weights_dtype``; the JAX command reads a ``dtype`` key
 its header does not have and prints null.
 
 Patch mode: tests/test_torch_serving_extras_patch_cli.py; a bfloat16
-patch artifact: tests/test_torch_serving_extras.py."""
+patch artifact: tests/test_torch_serving_extras.py.
+
+The JAX package's object masks here are its OpenCV path's, which the
+port computes bit for bit without OpenCV: these comparisons need
+OpenCV on the machine that runs the tests (without it the JAX package
+takes its numpy fallback, which the port does not compute)."""
 
 import json
 
@@ -23,7 +28,6 @@ import numpy as np
 import pytest
 import torch
 from _torch_eval import IMSIZE, seeded_state_dict, with_jax_draws
-from _torch_port import jax_masks_on_the_numpy_path  # noqa: F401  (autouse fixture)
 from _torch_port import jax_variables
 
 from ssad_tpu_torch import cli

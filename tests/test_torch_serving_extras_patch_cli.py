@@ -22,12 +22,16 @@ command's (measured 1e-4 and 4e-4); the IoU, at the optimal-F1
 threshold, is ill-conditioned (1.1e-3 apart here, 2.7e-3–3.4e-3 at
 bf16 in the evaluator test) and held through the oracle only.
 
-A bfloat16 patch artifact: tests/test_torch_serving_extras.py."""
+A bfloat16 patch artifact: tests/test_torch_serving_extras.py.
+
+The JAX package's object masks here are its OpenCV path's, which the
+port computes bit for bit without OpenCV: these comparisons need
+OpenCV on the machine that runs the tests (without it the JAX package
+takes its numpy fallback, which the port does not compute)."""
 
 import numpy as np
 import torch
 from _torch_eval import IMSIZE, with_jax_draws
-from _torch_port import jax_masks_on_the_numpy_path  # noqa: F401  (autouse fixture)
 from test_torch_serving_extras_cli import _last_json, models  # noqa: F401  (fixture)
 
 from ssad_tpu_torch import cli
