@@ -153,7 +153,11 @@ the batch.)  It imports nothing of JAX or of the JAX package.  Phases
    and infer's 69,803 windows; and the Grad-CAM maps (finite, in [0, 1], zero wherever y_hat is 0; a
    defect prediction whose saliency the ReLU cuts everywhere is zero too,
    and is counted) and the on-card metrics against the oracles (2e-4;
-   AUPRO 3e-4).
+   AUPRO 3e-4), their ROC and PRO curves held monotone as
+   tests/test_metrics_device.py holds its own (``curve_faults``; the
+   trapezoid bound is for that test's untied scores).  Then
+   that rule over that test's 200 problems on the card (``eval curves:``,
+   ``curve_sweep``): no problem may break it.
 8. Drive the other scorers and backbones.  (a) A wide_resnet50_2 PeraNet
    at its published widths (bottleneck (3, 4, 6, 3), inner width 2×,
    3,584 → 512 head; bf16, a seeded init: no pretrained weights are in
@@ -258,11 +262,30 @@ the batch.)  It imports nothing of JAX or of the JAX package.  Phases
    sequential sweep.  Launch counts are reset just before (c)'s sharded
    runs and read just after (d)'s; every kernel call is recorded and
    held against its plain version.
-13. Print one JSON line of kernel records (all three kernels, with their
+13. The two composed end-to-end runs.  (a) ``readiness:`` ``cli train
+   --dataset-dir --pretrained-backbone`` at full width (ResNet-18, 256²,
+   batch 96, bf16) on phase 5's bottle tree with a seeded torchvision-layout
+   ``.pth`` (running means N(0, 1)), cut to 1 + 3 epochs of one step, then
+   ``cli evaluate`` at image level on phase 7's test split: the
+   checkpoint's conv1 and a backbone running mean correlate above 0.8 with
+   the file's conv1 and bn1.running_mean, ``image_auroc=`` is printed and
+   the Markdown table names bottle.  (b) ``multi15:`` ``cli train-multi
+   --subjects all --stack 8 --resume-dir`` in a second process on cuda:0
+   over the parity generator's 15 categories at 64² (8 train-good images
+   each; batch 96, 1 + 4 epochs of one step): SIGTERM at the first group
+   snapshot → exit 75, a resume hint, no checkpoint; the same command →
+   exit 0, the texture and fixed chunks announced with their padding
+   lines, 15 checkpoints with 1 + 4 epochs of history; then ``cli
+   evaluate --subjects all`` at image level on them in this process.
+   Launch counts are reset just before each evaluation path and read just
+   after; csrc/knn.cu must run on both, and every call is recorded and
+   held against its plain version.
+14. Print one JSON line of kernel records (all three kernels, with their
    launches on the training, evaluation, scorer, localize, serving
-   extras, native serving, profile, parity and multi-device paths), the
-   script's seconds, the card line again, and the final {"ok": true,
-   "device": ...} line.
+   extras, native serving, profile, parity and multi-device paths, and the
+   resident k-NN's on the readiness and 15-category paths), the script's
+   seconds, the card line again, and the final {"ok": true, "device": ...}
+   line.
 """
 
 from __future__ import annotations
@@ -332,6 +355,17 @@ PARITY_IMAGE_AUROC_FLOOR, PARITY_PIXEL_AUROC_FLOOR = 0.80, 0.90
 #: sharded engine's limit against the unsharded one, cable's test split
 MULTI_SUBJECTS, MULTI_MIN_LEN, MULTI_TIMED, MULTI_TOL = ("bottle", "cable"), 192, 5, 1e-5
 MULTI_CABLE_SPLIT = (("good", 10), ("broken_large", 10))
+#: phase 7's curve sweep: the problems (tests/test_metrics_device.py's, from
+#: default_rng(s) for s < CURVE_SEEDS) and that test's rule on the plotted
+#: ROC and PRO curves: every step of x and y ≥ -CURVE_STEP_TOL, y in [0, 1 +
+#: CURVE_Y_TOL], the ROC's trapezoid within CURVE_TRAPZ_TOL of the AUROC
+CURVE_SEEDS, CURVE_STEP_TOL, CURVE_Y_TOL, CURVE_TRAPZ_TOL = 200, 1e-7, 1e-6, 5e-3
+#: phase 13: the correlation the readiness run's checkpoint must keep with
+#: the weight file (the JAX test's); the 15-category tree's size and
+#: train-good images a category (a bank under 100 rows leaves ``evaluate``
+#: to fit on the train split's embeddings, and the fit needs 4: 8 images
+#: give 6 or 7), train-multi's batch (one step an epoch)
+READINESS_CORR, MULTI15_IMSIZE, MULTI15_TRAIN, MULTI15_BATCH = 0.8, 64, 8, 96
 #: the JAX package's accuracy on the same synthetic trio at the same
 #: defaults (256², batch 96, ResNet-18, 5 + 15 epochs, seed 0), copied from
 #: outputs/parity/parity_summary.json (accuracy only: no time of it is used)
@@ -1907,6 +1941,10 @@ def _metrics_against_oracles(maps, gts, what: str) -> dict:
     top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:5]
     oracle, host_ms = _timed(lambda: _pixel_scores(host, maps, gts))
     # (AUROC, ROC, IoU, AUPRO, PRO curve)
+    curves = curve_faults(MD.PixelMetrics(auroc=dev[0], threshold=0.0, f1=0.0, iou=dev[2],
+                                          aupro=dev[3], roc=dev[1], pro=dev[4]))
+    if not curves["monotone"]:
+        fail(f"{what}: the on-card curves are not monotone: {curves}")
     device = {"auroc": dev[0], "iou": dev[2], "aupro": dev[3]}
     oracle = {"auroc": oracle[0], "iou": oracle[2], "aupro": oracle[3]}
     deltas = {k: abs(device[k] - v) for k, v in oracle.items()}
@@ -1917,7 +1955,83 @@ def _metrics_against_oracles(maps, gts, what: str) -> dict:
             "program_ms": program_ms, "program_busy_us": busy_us(events),
             "program_device_ops": len(events), "program_top_us": dict(top),
             "host_oracles_ms": host_ms, "device": device, "oracle": oracle,
-            "max_abs_delta": max(deltas.values())}
+            "max_abs_delta": max(deltas.values()), "curves": curves}
+
+
+def curve_problem(seed: int, n: int = 6, h: int = 64, w: int = 64) -> tuple:
+    """(maps, masks) of tests/test_metrics_device.py's problem drawn from
+    ``default_rng(seed)`` (its ``_blob_gts`` then ``_correlated_maps``),
+    rebuilt in numpy: blob masks on 60 % of the images, scores 0.8 on a
+    blob plus N(0.3, 0.25)."""
+    rng = np.random.default_rng(seed)
+    gts = np.zeros((n, h, w), np.uint8)
+    for i in range(n):
+        if rng.random() > 0.6:
+            continue
+        for _ in range(rng.integers(1, 4)):
+            cy, cx = rng.integers(4, h - 4), rng.integers(4, w - 4)
+            r = int(rng.integers(2, 6))
+            yy, xx = np.ogrid[:h, :w]
+            gts[i][(yy - cy) ** 2 + (xx - cx) ** 2 <= r * r] = 1
+    if not gts.any():
+        gts[0, 2:6, 2:6] = 1
+    maps = gts.astype(np.float32) * 0.8 + rng.normal(0.3, 0.25, gts.shape).astype(np.float32)
+    return maps, gts
+
+
+def curve_faults(pm) -> dict:
+    """tests/test_metrics_device.py's rule on a PixelMetrics' ROC and PRO
+    curves (either package's) → {"dip": the largest fall of x or y between
+    two points, 0 if none; "y_beyond": how far y leaves [0, 1]; "trapz_gap":
+    |the ROC's trapezoid - the AUROC|, "ends": the x ends are 0 and 1,
+    "monotone": ends, dip and y_beyond within the CURVE_* limits, "ok": the
+    trapezoid too}.  The trapezoid bound is the test's, for its continuous
+    scores: on maps with long runs of tied scores the plotted curve's
+    quantile points skip the runs' ends, so it holds only "monotone"."""
+    dip = y_beyond = 0.0
+    ends = True
+    for x, y in (c for c in (pm.roc, pm.pro) if c is not None):
+        x, y = np.asarray(x, np.float64), np.asarray(y, np.float64)
+        ends = ends and x[0] == 0.0 and x[-1] == 1.0
+        dip = max(dip, float(-min(np.diff(x).min(), np.diff(y).min(), 0.0)))
+        y_beyond = max(y_beyond, float(max(-y.min(), y.max() - 1.0, 0.0)))
+    trapz = float(np.sum(np.diff(pm.roc[0]) * (pm.roc[1][1:] + pm.roc[1][:-1]) / 2))
+    gap = abs(trapz - pm.auroc)
+    monotone = bool(ends and dip <= CURVE_STEP_TOL and y_beyond <= CURVE_Y_TOL)
+    return {"dip": dip, "y_beyond": y_beyond, "trapz_gap": gap, "ends": bool(ends),
+            "monotone": monotone, "ok": monotone and gap <= CURVE_TRAPZ_TOL}
+
+
+def curve_sweep(pixel_metrics, seeds=range(CURVE_SEEDS)) -> dict:
+    """``pixel_metrics(maps, masks)`` (either package's, the maps wherever
+    the caller puts them) over ``seeds``' curve problems → {"problems",
+    "dipped": seeds whose curves fall, "largest_dip", "failed": seeds
+    breaking any part of the rule, the largest y_beyond and trapz_gap,
+    "aupro": {seed: AUPRO}}."""
+    out = {"problems": 0, "dipped": [], "largest_dip": 0.0, "failed": [],
+           "largest_y_beyond": 0.0, "largest_trapz_gap": 0.0, "aupro": {}}
+    for s in seeds:
+        pm = pixel_metrics(*curve_problem(s))
+        f = curve_faults(pm)
+        out["problems"] += 1
+        if f["dip"] > 0:
+            out["dipped"].append(s)
+        if not f["ok"]:
+            out["failed"].append(s)
+        out["largest_dip"] = max(out["largest_dip"], f["dip"])
+        out["largest_y_beyond"] = max(out["largest_y_beyond"], f["y_beyond"])
+        out["largest_trapz_gap"] = max(out["largest_trapz_gap"], f["trapz_gap"])
+        out["aupro"][s] = pm.aupro
+    return out
+
+
+def on_device_pixel_metrics(device):
+    """The port's ``pixel_metrics`` with the maps moved to ``device``."""
+    import torch
+
+    from ssad_tpu_torch.evaluation import metrics_device as MD
+
+    return lambda maps, gts: MD.pixel_metrics(torch.from_numpy(maps).to(device), gts)
 
 
 def _plain_knn(queries, bank, k: int):
@@ -2151,6 +2265,15 @@ def drive_evaluation(device, work: Path) -> dict:
                   stages=eval_stages(device, root, models / "bottle" / "best_model.ckpt"))
     print(f"eval stages: {json.dumps(record['stages'])} ({card_line()})", flush=True)
     print(f"eval launches: {json.dumps(launches)}", flush=True)
+    t0 = time.perf_counter()
+    sweep = curve_sweep(on_device_pixel_metrics(device))
+    sweep["wall_s"] = time.perf_counter() - t0
+    del sweep["aupro"]
+    print(f"eval curves: {json.dumps(sweep)} ({card_line()})", flush=True)
+    if sweep["failed"]:
+        fail(f"the on-card curves break the monotone rule on {len(sweep['failed'])} of "
+             f"{sweep['problems']} problems: {sweep}")
+    record["curves"] = sweep
     return record
 
 
@@ -3535,6 +3658,210 @@ def drive_multi_device(device, work: Path) -> dict:
     return out
 
 
+# ---- phase 13: the two composed runs -----------------------------------------
+
+
+def torchvision_state_dict(seed: int = 0, mean_std: float = 1.0) -> dict:
+    """Seeded random weights with torchvision resnet18's keys and shapes
+    (``fc.*`` zeros): convolutions N(0, fan_in^-1/2), BatchNorm scales and
+    running variances U(0.5, 1.5), running means N(0, ``mean_std``) (at 1,
+    far from a fresh module's zeros, as an ImageNet file's are), biases N(0,
+    0.1)."""
+    import torch
+
+    from ssad_tpu_torch.config import ModelConfig
+    from ssad_tpu_torch.models.peranet import build_model
+
+    rng = np.random.default_rng(seed)
+    sd = {}
+    for k, v in build_model(ModelConfig()).feature_extractor.state_dict().items():
+        if k.endswith("num_batches_tracked"):
+            sd[k] = torch.tensor(0)
+        elif k.endswith("running_var") or k.endswith(".weight") and v.ndim == 1:
+            sd[k] = torch.from_numpy(rng.uniform(0.5, 1.5, v.shape).astype(np.float32))
+        elif v.ndim == 4:
+            sd[k] = torch.from_numpy(rng.normal(0, v[0].numel() ** -0.5, v.shape)
+                                     .astype(np.float32))
+        else:
+            std = mean_std if k.endswith("running_mean") else 0.1
+            sd[k] = torch.from_numpy(rng.normal(0, std, v.shape).astype(np.float32))
+    sd["fc.weight"] = torch.zeros(1000, 512)
+    sd["fc.bias"] = torch.zeros(1000)
+    return sd
+
+
+def _corr(a, b) -> float:
+    return float(np.corrcoef(a.float().numpy().ravel(), b.float().numpy().ravel())[0, 1])
+
+
+def drive_readiness(work: Path) -> dict:
+    """Phase 13a: ``cli train --dataset-dir --pretrained-backbone`` at full
+    width (ResNet-18, 256², batch 96, bf16) on phase 5's bottle tree with a
+    seeded torchvision-layout file, cut to 1 + 3 epochs of one step, then
+    ``cli evaluate`` at image level on phase 7's test split; launch counts
+    reset just before and read just after, every kernel call recorded and
+    held against its plain version.  The checkpoint's conv1 and one of its
+    backbone running means must correlate above READINESS_CORR with the
+    file's conv1 and bn1.running_mean."""
+    import torch
+
+    from ssad_tpu_torch.utils.ref_checkpoint import load_checkpoint
+    from ssad_tpu_torch.utils.torch_weights import convert_resnet_state_dict
+
+    root, models, out = work / "synth_mvtec", work / "readiness_models", work / "readiness_eval"
+    pth = work / "resnet18_seeded.pth"
+    torch.save(torchvision_state_dict(seed=11), pth)
+    want = convert_resnet_state_dict(torch.load(pth, weights_only=True))
+    # ---- the readiness path: counts to 0 just before, read just after -------
+    _zero_launches()
+    with recording_every_kernel() as calls:
+        _, train_s = _run_cli(["train", "--dataset-dir", str(root), "--subject", "bottle",
+                               "--imsize", str(IMSIZE), "--batch-size", str(TRAIN_BATCH),
+                               "--min-dataset-length", str(TRAIN_BATCH),
+                               "--projection-epochs", "1", "--fine-tune-epochs", "3",
+                               "--pretrained-backbone", str(pth), "--outputs-dir", str(models),
+                               "--quiet"])
+        lines, eval_s = _run_cli(["evaluate", "--dataset-dir", str(root), "--models-dir",
+                                  str(models), "--subjects", "bottle", "--imsize", str(IMSIZE),
+                                  "--seed", "0", "--outputs-dir", str(out)])
+        launches = _eval_launches()
+    # ---- end of the readiness path -------------------------------------------
+    state, _, _, cfg = load_checkpoint(models / "bottle" / "best_model.ckpt")
+    mean = want["bn1.running_mean"]
+    table = out / "tables" / "markdown" / "image_all_scores.md"
+    rec = {"train_s": train_s, "evaluate_s": eval_s, "stdout": lines[-1:],
+           "conv1_corr": _corr(state["feature_extractor.conv1.weight"], want["conv1.weight"]),
+           "bn1_running_mean_corr": max(
+               _corr(v, mean) for k, v in state.items()
+               if k.startswith("feature_extractor.") and k.endswith("running_mean")
+               and v.shape == mean.shape),
+           "launches": launches, "calls": {k: len(v) for k, v in calls.items()},
+           "vs_plain": held_against_plain(calls, "readiness")}
+    print(f"readiness: {json.dumps(rec)} ({card_line()})", flush=True)
+    if cfg.model.pretrained_backbone != str(pth) or cfg.model.compute_dtype != "bfloat16":
+        fail(f"readiness: the checkpoint's ModelConfig {cfg.model}")
+    if not (rec["conv1_corr"] > READINESS_CORR and rec["bn1_running_mean_corr"] > READINESS_CORR):
+        fail(f"readiness: the file's weights did not reach the checkpoint: {rec}")
+    if not lines[-1].startswith("bottle: image_auroc=") or "bottle" not in table.read_text():
+        fail(f"readiness: evaluate printed {lines[-1:]}; table {table}")
+    if launches["knn_cosine_scores"] < 1 or rec["calls"] != launches:
+        fail(f"readiness: launches {launches}, recorded calls {rec['calls']}")
+    return rec
+
+
+def _last_json(text: str):
+    for line in reversed(text.strip().splitlines()):
+        try:
+            return json.loads(line)
+        except json.JSONDecodeError:
+            continue
+    return None
+
+
+def drive_multi15(work: Path) -> dict:
+    """Phase 13b: ``cli train-multi --subjects all --stack 8 --resume-dir``
+    in a second process on cuda:0 over the parity generator's 15 categories
+    at 64² (8 train-good, 1 good and 1 defect test image each; batch 96, 1 +
+    4 epochs of one step): SIGTERM at the first group snapshot → exit 75, a
+    resume hint, no checkpoint of any subject; the same command → exit 0,
+    the texture and fixed chunks with their padding lines, 15 checkpoints
+    with 1 + 4 epochs of history.  Then ``cli evaluate --subjects all`` at
+    image level in this process on them; launch counts reset just before
+    and read just after, every kernel call recorded and held against its
+    plain version."""
+    from ssad_tpu_torch import constants
+    from ssad_tpu_torch.parity import generate_parity_dataset
+
+    subjects = list(constants.ALL_CATEGORIES)
+    tree = generate_parity_dataset(work / "mvtec15", subjects, imsize=MULTI15_IMSIZE,
+                                   n_train=MULTI15_TRAIN, n_test_good=1, n_test_defect=1)
+    out, resume = work / "multi15_out", work / "multi15_resume"
+    cmd = [sys.executable, "-m", "ssad_tpu_torch.cli", "train-multi", "--dataset-dir", str(tree),
+           "--outputs-dir", str(out), "--subjects", "all", "--imsize", str(MULTI15_IMSIZE),
+           "--batch-size", str(MULTI15_BATCH), "--min-dataset-length", str(MULTI15_BATCH),
+           "--projection-epochs", "1", "--fine-tune-epochs", "4", "--stack", "8",
+           "--resume-dir", str(resume)]
+    rec = {}
+    log1 = work / "multi15_run1.log"
+    t0 = time.perf_counter()
+    with open(log1, "w") as log:
+        proc = subprocess.Popen(cmd, cwd=ROOT, stdout=log, stderr=subprocess.STDOUT)
+        try:
+            deadline = time.time() + 300
+            while not list(resume.glob("multi_*/resume_snapshot.pt")):
+                if proc.poll() is not None or time.time() > deadline:
+                    fail(f"multi15: no group snapshot (rc {proc.poll()}):\n"
+                         f"{log1.read_text()[-3000:]}")
+                time.sleep(0.05)
+            rec["snapshot"] = [p.parent.name for p in resume.glob("multi_*/resume_snapshot.pt")]
+            rec["sigterm_at_s"] = time.perf_counter() - t0
+            proc.send_signal(signal.SIGTERM)
+            proc.wait(timeout=180)
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    run1 = log1.read_text()
+    rec["run1_s"], rec["run1_rc"] = time.perf_counter() - t0, proc.returncode
+    hint = _last_json(run1)
+    partial = [s for s in subjects if list((out / s).glob("best_model*"))]
+    if proc.returncode != 75 or not hint or hint.get("resume_dir") != str(resume) or partial:
+        fail(f"multi15 drain: rc {proc.returncode}, hint {hint}, partial {partial}:\n"
+             f"{run1[-3000:]}")
+    log2 = work / "multi15_run2.log"
+    t0 = time.perf_counter()
+    with open(log2, "w") as log:
+        done = subprocess.run(cmd, cwd=ROOT, stdout=log, stderr=subprocess.STDOUT, timeout=300)
+    run2 = log2.read_text()
+    rec["run2_s"], rec["run2_rc"] = time.perf_counter() - t0, done.returncode
+    both = run1 + run2
+    textures = "+".join(s for s in subjects if constants.is_texture(s))
+    fixed = "+".join(s for s in subjects if not constants.is_texture(s)
+                     and not constants.is_non_fixed_object(s))
+    rec["chunks"] = [textures, fixed]
+    rec["epochs"] = {}
+    for s in subjects:
+        hist_path = out / s / "history.json"
+        hist = json.loads(hist_path.read_text()) if hist_path.is_file() else {}
+        rec["epochs"][s] = [len(hist.get("projection_train_loss", [])),
+                            len(hist.get("fine_tune_val_loss", []))]
+    missing = [s for s in subjects if not (out / s / "best_model.ckpt").is_file()
+               or rec["epochs"][s] != [1, 4]]
+    if done.returncode != 0 or missing or textures not in both or fixed not in both \
+            or "padding 5-category chunk to stack=8 with duplicates (3/8" not in both \
+            or "padding 7-category chunk to stack=8 with duplicates (1/8" not in both:
+        fail(f"multi15 resume: rc {done.returncode}, missing or short {missing}:\n{run2[-3000:]}")
+    # ---- the 15-category evaluation: counts to 0 just before, read just after
+    _zero_launches()
+    with recording_every_kernel() as calls:
+        lines, eval_s = _run_cli(["evaluate", "--dataset-dir", str(tree), "--models-dir",
+                                  str(out), "--subjects", "all", "--imsize",
+                                  str(MULTI15_IMSIZE), "--seed", "0", "--outputs-dir",
+                                  str(work / "multi15_eval")])
+        launches = _eval_launches()
+    # ---- end of the 15-category evaluation ------------------------------------
+    scored = [s for s in subjects if any(ln.startswith(f"{s}: image_auroc=") for ln in lines)]
+    rec.update(evaluate_s=eval_s, scored=len(scored), launches=launches,
+               calls={k: len(v) for k, v in calls.items()},
+               vs_plain=held_against_plain(calls, "multi15"))
+    print(f"multi15: {json.dumps(rec)} ({card_line()})", flush=True)
+    if len(scored) != len(subjects) or launches["knn_cosine_scores"] < 1 \
+            or rec["calls"] != launches:
+        fail(f"multi15 evaluate: scored {scored}, launches {launches}, calls {rec['calls']}")
+    return rec
+
+
+def drive_composed(work: Path) -> dict:
+    """Phase 13: the readiness run (13a), then the 15-category drain and
+    resume (13b)."""
+    out = {}
+    for name, fn in (("readiness", drive_readiness), ("multi15", drive_multi15)):
+        t0 = time.perf_counter()
+        out[name] = fn(work)
+        out[name]["phase_s"] = time.perf_counter() - t0
+    return out
+
+
 def main() -> int:
     t_start = time.perf_counter()
     try:
@@ -3598,6 +3925,9 @@ def main() -> int:
         t_multi = time.perf_counter()
         multi = drive_multi_device(device, work)
         print(f"phase 12: {time.perf_counter() - t_multi:.1f} s", flush=True)
+        t_composed = time.perf_counter()
+        composed = drive_composed(work)
+        print(f"phase 13: {time.perf_counter() - t_composed:.1f} s", flush=True)
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
@@ -3617,6 +3947,10 @@ def main() -> int:
         "scorer_path_launches": scorers["coreset"]["launches"]["knn_cosine_scores"],
         "scorer_path_shape": scorers["coreset"]["knn_at_coreset"],
         "scorer_path_vs_plain": scorers["coreset"]["vs_plain_knn"],
+        "readiness_path_launches": composed["readiness"]["launches"]["knn_cosine_scores"],
+        "readiness_path_vs_plain": composed["readiness"]["vs_plain"]["knn_cosine_scores"],
+        "multi15_path_launches": composed["multi15"]["launches"]["knn_cosine_scores"],
+        "multi15_path_vs_plain": composed["multi15"]["vs_plain"]["knn_cosine_scores"],
     }]
     tserve, tfit = tiled_records["serve"], tiled_records["fit"]
     kernels.append({
@@ -3675,6 +4009,8 @@ def main() -> int:
                 or rec["serving_extras_path_launches"] < 1
                 or rec["native_serving_path_launches"] < 1
                 or rec["parallel_path_launches"] < 1
+                or rec.get("readiness_path_launches", 1) < 1
+                or rec.get("multi15_path_launches", 1) < 1
                 or (name != "knn_cosine_scores" and rec["localize_path_launches"] < 1)):
             fail(f"{rec['name']} was not launched on its path")
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -14,11 +14,16 @@ Ties are resolved as the oracles resolve them: every curve point is
 taken at the LAST element of each equal-score run, and the previous
 run's end comes from a shifted ``torch.cummax`` (the cumulative sums are
 nondecreasing, so the prefix max of the run-end values is the latest
-run end).  Sums, ratios and the curves are f32, as in the JAX program,
-so the results agree with the f64 oracles to about 1e-4
-(tests/test_torch_metrics_device.py).  The JAX program pads to a power
-of two to avoid recompiles; nothing is compiled here, so nothing is
-padded.
+run end).  Ratios and the curves are f32, as in the JAX program, so the
+results agree with the f64 oracles to about 1e-4
+(tests/test_torch_metrics_device.py).  The PRO weights are summed in f64
+and cast once to f32: a CUDA ``cumsum`` of f32 accumulates in f32 in a
+parallel scan, and its running sum fell by one f32 step on 116 of 200
+problems (the JAX program's f32 cumsum on 86), so the PRO curve dipped;
+the CPU's ``cumsum`` of f32 already accumulates in f64.  The positive
+and negative counts are exact int64 sums.  The JAX program pads to a
+power of two to avoid recompiles; nothing is compiled here, so nothing
+is padded.
 """
 
 from __future__ import annotations
@@ -58,7 +63,7 @@ def metrics_program(scores, pos, pro, total_pos: int, total_neg: int, num_region
 
     tps = torch.cumsum(pos_s, 0)
     fps = torch.cumsum(1 - pos_s, 0)
-    pros_cum = torch.cumsum(pro_s, 0)
+    pros_cum = torch.cumsum(pro_s, 0, dtype=torch.float64).to(f32)
     p_, n_, r_ = (float(max(v, 1)) for v in (total_pos, total_neg, num_regions))
 
     # ROC: trapezoids between consecutive run ends, from the (0, 0) origin

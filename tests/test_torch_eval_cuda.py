@@ -8,6 +8,11 @@ machine without them:
     python -m pytest --noconftest tests/test_torch_eval_cuda.py
 Bounds against the f64 oracles: 2e-4 on AUROC, F1 and IoU, 3e-4 on AUPRO
 (the f32 program's, as on the CPU: tests/test_torch_metrics_device.py).
+The plotted ROC and PRO curves are held to tests/test_metrics_device.py's
+rule (no step of x or y below -1e-7, y in [0, 1 + 1e-6], the ROC's
+trapezoid within 5e-3 of the AUROC) over that test's problem drawn from
+``default_rng(s)`` for s < 200 (chip_smoke.py ``curve_problem`` and
+``curve_faults``).
 The category runs use a seeded 256² bottle tree (chip_smoke.py's writers:
 6 train-good images, 9 test images) and a seeded bf16 PeraNet: at image
 level csrc/knn.cu fits and scores; in patch mode 3 normality images give
@@ -50,6 +55,14 @@ def test_device_metrics_on_the_card_match_the_oracles(cuda_device, quantize):
     assert abs(got.iou - M.iou_score(gts.ravel(), scores, thr)) <= 2e-4
     assert abs(got.aupro - M.compute_aupro(fprs, pros, 0.3)) <= 3e-4
     assert got.roc[0][0] == 0.0 and got.roc[0][-1] == 1.0
+
+
+def test_curves_on_the_card_are_monotone_over_200_problems(cuda_device):
+    import chip_smoke as cs
+
+    sweep = cs.curve_sweep(cs.on_device_pixel_metrics(cuda_device))
+    assert sweep["problems"] == cs.CURVE_SEEDS
+    assert not sweep["failed"], sweep
 
 
 @pytest.fixture(scope="module")

@@ -19,6 +19,7 @@ and subject from the checkpoint, and the torchvision backbone loader.
 import dataclasses
 import json
 
+import chip_smoke
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -104,23 +105,10 @@ def test_a_reference_checkpoint_without_train_config_exports_as_before(tmp_path)
     assert payload["bank"].shape[0] == 16 - round(0.3 * 16)
 
 
-def _torchvision_state_dict(seed=0):
-    """Seeded random weights with torchvision resnet18's keys and shapes."""
-    rng = np.random.default_rng(seed)
-    sd = {}
-    for k, v in build_model(ModelConfig()).feature_extractor.state_dict().items():
-        if k.endswith("num_batches_tracked"):
-            sd[k] = torch.tensor(0)
-        elif k.endswith("running_var") or k.endswith(".weight") and v.ndim == 1:
-            sd[k] = torch.from_numpy(rng.uniform(0.5, 1.5, v.shape).astype(np.float32))
-        elif v.ndim == 4:
-            fan_in = v[0].numel()
-            sd[k] = torch.from_numpy(rng.normal(0, fan_in**-0.5, v.shape).astype(np.float32))
-        else:
-            sd[k] = torch.from_numpy(rng.normal(0, 0.1, v.shape).astype(np.float32))
-    sd["fc.weight"] = torch.zeros(1000, 512)
-    sd["fc.bias"] = torch.zeros(1000)
-    return sd
+def _torchvision_state_dict(seed=0, mean_std=0.1):
+    """Seeded random weights with torchvision resnet18's keys and shapes;
+    running means N(0, ``mean_std``) (chip_smoke.py's, which phase 13 loads)."""
+    return chip_smoke.torchvision_state_dict(seed, mean_std)
 
 
 def test_pretrained_backbone_matches_jax(tmp_path):
