@@ -16,6 +16,11 @@ the batch.)  It imports nothing of JAX or of the JAX package.  Phases
    kernel of the serving paths from ssad_tpu_torch/csrc (knn, knn_tiled,
    stem_pool: one nvcc per source, started together) and print ptxas's
    register and spill lines and any note that it serialized wgmmas.
+   Then, on the host (``stream:``), the SHA-256 of the first batch of
+   ``utils.jax_random.JaxTrainStream(0, …)`` (the JAX package's random
+   stream rebuilt in numpy: indices and synthesis draws), which must equal
+   ``STREAM_DIGEST`` (tests/test_torch_jax_random.py pins the same
+   constant: this machine's numpy gives the stream JAX gives).
 2. Hold each kernel against its plain PyTorch version on the card (TF32
    off) at its paths' shapes, and time kernel, plain version and a
    library yardstick beside the card's bound; at the main shapes also
@@ -1153,6 +1158,27 @@ def corpus_masks(size: int) -> list:
 
     return [subject_mask(mask_corpus_image(name, size), subject)
             for name, subject in MASK_CORPUS]
+
+
+#: the SHA-256 of ``JaxTrainStream(0, 32, 8, 96)``'s first batch on the
+#: bottle at 256² (``jax_random.stream_digest``)
+STREAM_DIGEST = "d389c4b95193862d3fccf17fad43b94385f09908697727c5ff9042a94084f6e9"
+
+
+def check_jax_stream() -> dict:
+    """Phase 1b: the JAX stream's digest on this host, held to
+    ``STREAM_DIGEST``."""
+    import numpy
+
+    from ssad_tpu_torch.utils import jax_random
+
+    t0 = time.perf_counter()
+    rec = {"digest": jax_random.stream_digest(), "pinned": STREAM_DIGEST,
+           "numpy": numpy.__version__, "ms": (time.perf_counter() - t0) * 1e3}
+    print(f"stream: {json.dumps(rec)}", flush=True)
+    if rec["digest"] != STREAM_DIGEST:
+        fail(f"stream: digest {rec['digest']} != the pinned {STREAM_DIGEST}")
+    return rec
 
 
 def mask_digest(masks) -> str:
@@ -3904,6 +3930,7 @@ def main() -> int:
             shutil.rmtree(work, ignore_errors=True)
         print(card_line(), flush=True)
         return 0
+    check_jax_stream()
     records = check_knn_kernel(device)
     stem_records = check_stem_kernel(device)
     tiled_records = check_tiled_kernel(device)

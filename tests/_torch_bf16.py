@@ -18,6 +18,12 @@ packages and both dtypes:
 
     python tests/_torch_bf16.py layers|step|spread
     python tests/_torch_bf16.py spread default   # the bf16 JAX step at XLA's default
+    python tests/_torch_bf16.py forward-spread 256   # the forward at another size
+
+``forward-spread SIZE`` reads the train-mode forward's logits from each
+of seeds 0–3's JAX init on a normal batch of 8 at SIZE², both packages,
+both dtypes, and the bf16 JAX forward with the TPU's own roundings
+(``_torch_train.tpu_one_pass``), as the largest |Δlogit| per pair.
 
 and saves, then compares, the port's pinned-step gradients (the JAX
 decisions cached in DIR, so two CPU settings differ only in the port's
@@ -428,6 +434,50 @@ def _print_spread(precision="declared"):
     print(json.dumps({"logit_scale": scale}), flush=True)
 
 
+def _print_forward_spread(size="256"):
+    import json
+
+    from _torch_train import tpu_one_pass
+
+    from ssad_tpu.config import ModelConfig as JModelConfig
+    from ssad_tpu.models.peranet import build_model as jbuild_model
+    from ssad_tpu.models.peranet import init_model
+    from ssad_tpu_torch.config import ModelConfig
+    from ssad_tpu_torch.models.peranet import build_model
+    from ssad_tpu_torch.utils.jax_bridge import state_dict_from_jax
+
+    size, pairs = int(size), {}
+    for seed in range(4):
+        jm = {dt: jbuild_model(JModelConfig(compute_dtype=dt)) for dt in ("float32", "bfloat16")}
+        params, stats = jax.jit(lambda k: init_model(jm["float32"], k, (1, 64, 64, 3)))(
+            jax.random.key(seed))
+        sd = state_dict_from_jax(*jax.tree.map(np.asarray, (params, stats)))
+        x = np.random.default_rng(seed).normal(size=(8, size, size, 3)).astype(np.float32)
+        lg = {}
+        for dt, m in jm.items():
+            f = jax.jit(lambda p, s, x, m=m: m.apply({"params": p, "batch_stats": s}, x,
+                                                     train=True, mutable=["batch_stats"])[0][
+                "classifier"])
+            lg[("jax", dt)] = np.asarray(declared_jit(f)(params, stats, x))
+            if dt == "bfloat16":
+                lg[("jax_tpu", dt)] = np.asarray(declared_jit(tpu_one_pass(f))(params, stats, x))
+            model = build_model(ModelConfig(compute_dtype=dt))
+            model.load_state_dict(sd, strict=True)
+            model.train()
+            with torch.no_grad():
+                lg[("port", dt)] = model(torch.from_numpy(x))["classifier"].numpy()
+        for a, b in ((("jax", "bfloat16"), ("jax", "float32")),
+                     (("port", "bfloat16"), ("port", "float32")),
+                     (("port", "bfloat16"), ("jax", "bfloat16")),
+                     (("port", "float32"), ("jax", "float32")),
+                     (("jax_tpu", "bfloat16"), ("jax", "bfloat16"))):
+            pairs.setdefault(f"{'_'.join(a)}_vs_{'_'.join(b)}", []).append(
+                float(np.abs(lg[a] - lg[b]).max()))
+    for pair, v in pairs.items():
+        print(json.dumps({"size": size, "pair": pair, "mean": float(np.mean(v)),
+                          "per_seed": v}), flush=True)
+
+
 def _save_grads(out, decisions_dir):
     """The port's pinned bf16 step on seeds 1–3 (``pinned_step``'s port
     half) → its gradients in ``out`` (.npz).  The JAX decisions are kept
@@ -477,4 +527,5 @@ if __name__ == "__main__":
     sys.path.insert(0, str(__import__("pathlib").Path(__file__).resolve().parent))
     jax.config.update("jax_platforms", "cpu")
     {"layers": _print_layers, "step": _print_step, "spread": _print_spread,
+     "forward-spread": _print_forward_spread,
      "grads": _save_grads, "compare": _compare_grads}[sys.argv[1]](*sys.argv[2:])

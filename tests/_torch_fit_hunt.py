@@ -16,7 +16,9 @@ the JAX init (``jax_bridge.state_dict_from_jax``).  Stage by stage:
   engines from the same key (of the denormalised pixel values: the share
   within 2⁻⁷, the share not equal, the mean |Δ| and mean Δ, the largest);
 * ``step0_loss``: the first step's loss of the JAX init on JAX's batch in
-  JAX, and in the port on JAX's batch and on its own;
+  JAX, and in the port on JAX's batch and on its own; ``by_dtype``: that
+  loss in f32 and in bf16 in each package (how far bf16 moves each from
+  its f32 loss, beside how far the packages are apart);
 * ``steps``: every step's train loss and every eval step's loss, JAX
   against the port, and the first step whose loss parts by more than
   1e-3;
@@ -28,8 +30,16 @@ the JAX init (``jax_bridge.state_dict_from_jax``).  Stage by stage:
   and the largest |Δ| of the test images' scores.
 
 ``--same-batches`` hands the port JAX's batches themselves, so that only
-the steps' arithmetic differs.  Prints one JSON line.  It imports both
-packages, so it lives with the tests.
+the steps' arithmetic differs.  ``--declared`` compiles the JAX steps and
+batch maker at declared precision (``_torch_train.declared_jit``: every
+bf16 intermediate the source declares rounded, as the port rounds it),
+for a bf16 hunt (``--dtype bfloat16 --imsize 256 --batch 32``).
+``--tpu-one-pass`` adds the TPU's own roundings to the JAX side
+(``_torch_train.tpu_one_pass``: every f32 dot and convolution at DEFAULT
+precision, as the head's dense layers, the bank insert and the
+synthesizer's line dots are, takes bf16 operands); the JAX numbers of a
+run with it against one without say how far those roundings alone move
+JAX's training.  Prints one JSON line.  It imports both packages, so it lives with the tests.
 """
 
 from __future__ import annotations
@@ -49,6 +59,7 @@ sys.path.insert(0, str(Path(__file__).resolve().parent))
 sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 
 from _torch_synth import jax_draws  # noqa: E402
+from _torch_train import declared_jit, tpu_one_pass  # noqa: E402
 
 from ssad_tpu.config import DataConfig as JDataConfig  # noqa: E402
 from ssad_tpu.config import ModelConfig as JModelConfig  # noqa: E402
@@ -84,14 +95,48 @@ def _max_delta(a: dict, b: dict) -> float:
                if not k.endswith("num_batches_tracked"))
 
 
+def _losses_by_dtype(init, init_sd, jx, jy, jit) -> dict:
+    """The train-mode loss of the JAX init on one batch in each package and
+    dtype (JAX's jitted with ``jit``): how far bf16 moves each package from
+    its f32 loss beside how far the packages are apart in each dtype."""
+    import optax
+
+    from ssad_tpu.models.peranet import build_model as jbuild_model
+
+    x, y = jnp.asarray(np.array(jx)), jnp.asarray(np.array(jy))
+    out = {}
+    for dt in ("float32", "bfloat16"):
+        jm = jbuild_model(JModelConfig(compute_dtype=dt))
+        logits = jit(jax.jit(lambda p, st, x: jm.apply(
+            {"params": p, "batch_stats": st}, x, train=True,
+            mutable=["batch_stats"])[0]["classifier"]))(init.params, init.batch_stats, x)
+        model = build_model(ModelConfig(compute_dtype=dt))
+        model.load_state_dict(init_sd, strict=True)
+        model.train()
+        with torch.no_grad():
+            port = torch.nn.functional.cross_entropy(
+                model(torch.from_numpy(np.array(jx)))["classifier"],
+                torch.from_numpy(np.array(jy)).long())
+        out[dt] = {"jax": float(optax.softmax_cross_entropy_with_integer_labels(
+            logits, y).mean()), "port": float(port)}
+    return out
+
+
 def run(subject: str, dtype: str, imsize: int, batch: int, min_len: int, epochs,
-        same_batches: bool = False) -> dict:
+        same_batches: bool = False, declared: bool = False, one_pass: bool = False) -> dict:
     torch.manual_seed(0)
     tmp = Path(tempfile.mkdtemp(prefix="fit_hunt_"))
     tree = generate_parity_dataset(tmp / "tree", list(constants.ALL_CATEGORIES), imsize=imsize,
                                    seed=0)
     out = {"subject": subject, "dtype": dtype, "imsize": imsize, "batch": batch,
-           "epochs": list(epochs), "same_batches": same_batches}
+           "epochs": list(epochs), "same_batches": same_batches, "declared": declared,
+           "tpu_one_pass": one_pass}
+    jit = declared_jit if declared else (lambda f: f)
+    if one_pass:
+        compile_ = jit
+
+        def jit(f):
+            return compile_(tpu_one_pass(f))
 
     # ---- data ------------------------------------------------------------------
     jdata = jmvtec.prepare_pretext_data(str(tree), subject, imsize=(imsize, imsize),
@@ -123,6 +168,7 @@ def run(subject: str, dtype: str, imsize: int, batch: int, min_len: int, epochs,
 
     def recording_step_fns(stage):
         train_step, eval_step, tx, steps = get(stage)
+        train_step, eval_step = jit(train_step), jit(eval_step)
 
         def tstep(state, key, *rest):
             new, m = train_step(state, key, *rest)
@@ -166,7 +212,7 @@ def run(subject: str, dtype: str, imsize: int, batch: int, min_len: int, epochs,
     pt.upload_draws = upload_draws
     if same_batches:  # JAX's own batch for each key: only the steps' arithmetic differs
         tr_j, va_j = jt._device_data("train"), jt._device_data("val")
-        make_j = jax.jit(jt._make_batch)
+        make_j = jit(jax.jit(jt._make_batch))
         n_train = pdata.train_images.shape[0]
 
         def upload_key(generator, dd):
@@ -216,7 +262,7 @@ def run(subject: str, dtype: str, imsize: int, batch: int, min_len: int, epochs,
     # ---- batches: each stage's first step, both engines on one key; the loss of
     # the JAX init on each batch (step 0 of the projection stage) --------------
     tr = jt._device_data("train")
-    make = jax.jit(jt._make_batch)
+    make = jit(jax.jit(jt._make_batch))
     dd = pt.device_data("train")
     out["batches"] = {}
     for stage in ("projection", "fine_tune"):
@@ -243,7 +289,8 @@ def run(subject: str, dtype: str, imsize: int, batch: int, min_len: int, epochs,
                 model.load_state_dict(init_sd, strict=True)
                 on_port_x = torch.nn.functional.cross_entropy(model(px)["classifier"], y)
             out["step0_loss"] = {"jax": first[3], "port_on_jax_batch": float(on_jax_x),
-                                 "port_on_port_batch": float(on_port_x)}
+                                 "port_on_port_batch": float(on_port_x),
+                                 "by_dtype": _losses_by_dtype(init, init_sd, jx, jy, jit)}
 
     # ---- steps -------------------------------------------------------------------
     deltas = [abs(p - r[3]) for p, r in zip(p_losses, record)]
@@ -296,11 +343,16 @@ def main() -> int:
     ap.add_argument("--epochs", default="2,6")
     ap.add_argument("--same-batches", action="store_true",
                     help="hand the port JAX's batches, not only its draws")
+    ap.add_argument("--declared", action="store_true",
+                    help="compile the JAX side at declared precision")
+    ap.add_argument("--tpu-one-pass", action="store_true",
+                    help="round the JAX side's f32 DEFAULT-precision dots' operands to bf16")
     args = ap.parse_args()
     torch.set_num_threads(4)
     epochs = tuple(int(e) for e in args.epochs.split(","))
     print(json.dumps(run(args.subject, args.dtype, args.imsize, args.batch, args.min_len,
-                         epochs, args.same_batches)), flush=True)
+                         epochs, args.same_batches, args.declared,
+                         args.tpu_one_pass)), flush=True)
     return 0
 
 

@@ -76,6 +76,91 @@ def declared_jit(fn):
     return call
 
 
+#: primitives a TPU runs at DEFAULT precision as one bf16 pass when an
+#: operand is f32: both operands rounded to bf16, products summed in f32
+_ONE_PASS = {jax.lax.dot_general_p, jax.lax.conv_general_dilated_p}
+_CALLS = ("pjit", "jit", "closed_call", "core_call", "remat", "checkpoint",
+          "custom_jvp_call", "custom_vjp_call")
+
+
+def _default_precision(p) -> bool:
+    default = (None, jax.lax.Precision.DEFAULT)
+    return all(q in default for q in p) if isinstance(p, tuple) else p in default
+
+
+def _eval_jaxpr(jaxpr, consts, *args):
+    from jax.extend.core import Literal
+
+    env = dict(zip(jaxpr.constvars, consts))
+    env.update(zip(jaxpr.invars, args))
+
+    def read(v):
+        return v.val if isinstance(v, Literal) else env[v]
+
+    for eqn in jaxpr.eqns:
+        outs = _one_pass_eqn(eqn, [read(v) for v in eqn.invars])
+        env.update(zip(eqn.outvars, outs if eqn.primitive.multiple_results else [outs]))
+    return [read(v) for v in jaxpr.outvars]
+
+
+def _as_fn(closed):
+    jaxpr, consts = (closed.jaxpr, closed.consts) if hasattr(closed, "consts") else (closed, ())
+    return lambda *a: _eval_jaxpr(jaxpr, consts, *a)
+
+
+def _one_pass_eqn(eqn, vals):
+    p, params = eqn.primitive, eqn.params
+    if p in _ONE_PASS and _default_precision(params.get("precision")) and any(
+            v.dtype == jnp.float32 for v in vals):
+        vals = [v.astype(jnp.bfloat16) if v.dtype == jnp.float32 else v for v in vals]
+        out = p.bind(*vals, **{**params, "preferred_element_type": jnp.float32})
+        return out.astype(eqn.outvars[0].aval.dtype)
+    if p.name in _CALLS:
+        sub = params.get("jaxpr", params.get("call_jaxpr"))
+        return _as_fn(sub)(*vals)
+    if p.name == "cond":
+        return jax.lax.switch(vals[0], [_as_fn(b) for b in params["branches"]], *vals[1:])
+    if p.name == "while":
+        cn, bn = params["cond_nconsts"], params["body_nconsts"]
+        cc, bc, init = vals[:cn], vals[cn:cn + bn], vals[cn + bn:]
+        cond, body = _as_fn(params["cond_jaxpr"]), _as_fn(params["body_jaxpr"])
+        return jax.lax.while_loop(lambda c: cond(*cc, *c)[0], lambda c: body(*bc, *c), init)
+    if p.name == "scan":
+        nc, ncar = params["num_consts"], params["num_carry"]
+        consts, carry, xs = vals[:nc], vals[nc:nc + ncar], vals[nc + ncar:]
+        f = _as_fn(params["jaxpr"])
+
+        def step(c, x):
+            o = f(*consts, *c, *x)
+            return o[:ncar], o[ncar:]
+
+        c, ys = jax.lax.scan(step, carry, xs, length=params["length"],
+                             reverse=params["reverse"], unroll=params["unroll"])
+        return [*c, *ys]
+    nested = {"jaxpr", "call_jaxpr", "branches"} & set(params)
+    if nested and p.name not in ("reduce", "reduce_window"):
+        raise NotImplementedError(f"tpu_one_pass: no rule for {p.name}")
+    return p.bind(*vals, **params)
+
+
+def tpu_one_pass(fn):
+    """``fn`` (a JAX function) as a TPU computes it at DEFAULT precision:
+    every dot and convolution with an f32 operand takes its operands
+    rounded to bf16 and sums in f32 (the MXU's one pass), all else as
+    written.  A jitted function of the same signature (it has ``lower``,
+    so ``declared_jit`` composes with it); ``fn``'s program is traced and
+    re-evaluated with those dots replaced, through calls, conds, loops
+    and scans."""
+
+    @jax.jit
+    def run(*args):
+        closed, shape = jax.make_jaxpr(fn, return_shape=True)(*args)
+        out = _eval_jaxpr(closed.jaxpr, closed.consts, *jax.tree.leaves(args))
+        return jax.tree.unflatten(jax.tree.structure(shape), out)
+
+    return run
+
+
 #: what the trainers read of PretextData here: one epoch step of BATCH
 _DATA = types.SimpleNamespace(train_images=np.zeros((BATCH, SIZE, SIZE, 3), np.float32),
                               cut_pool=np.zeros((1, SIZE, SIZE, 3), np.float32))
