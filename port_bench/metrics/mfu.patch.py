@@ -1,0 +1,8 @@
+"""The algorithm's FLOPs for the patch answers returned in the window, over
+the window, against 989 TFLOP/s dense bf16, %."""
+
+from port_bench.core import readers
+
+
+def read(ctx):
+    return readers.mfu(ctx, "patch")

@@ -1,0 +1,7 @@
+"""Host ms of one ServedScorer call, its sync included, mean over the window (patch cells)."""
+
+from port_bench.core import readers
+
+
+def read(ctx):
+    return readers.scorer_ms(ctx, "patch")
