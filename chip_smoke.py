@@ -1714,13 +1714,15 @@ def time_train_stage(device, trainer, stage: str) -> dict:
         run(uploaded[-1])
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
-    kernels = [e for e in device_events(prof) if e[0] not in STEP_GROUPS]
+    kernels = device_events(prof)
     busy = busy_us(kernels)
     kernel_us = sum(end_us - start_us for _, start_us, end_us in kernels)
-    groups = {g: 0.0 for g in STEP_GROUPS if fill or g != "bank_fill"}
+    # the step's spans by their last word: synthesis, forward, ...
+    short = {g: g.rsplit(".", 1)[1] for g in STEP_GROUPS}
+    groups = {short[g]: 0.0 for g in STEP_GROUPS if fill or short[g] != "bank_fill"}
     for e in prof.events():
-        if e.name in groups and e.device_type == torch.autograd.DeviceType.CPU:
-            groups[e.name] += e.device_time_total
+        if short.get(e.name) in groups and e.device_type == torch.autograd.DeviceType.CPU:
+            groups[short[e.name]] += e.device_time_total
     # autograd launches the backward's kernels from its own device thread,
     # outside the step's ranges: backward is every kernel outside the others
     groups["backward"] = kernel_us - sum(v for k, v in groups.items() if k != "backward")

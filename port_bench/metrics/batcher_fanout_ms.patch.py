@@ -1,0 +1,9 @@
+"""Host ms per batch in ``ssad.batcher.fanout`` (rows back to the requests,
+their events set, the counters), mean over the profiled stretch (patch
+cells)."""
+
+from port_bench.core import spans
+
+
+def read(ctx):
+    return spans.span_ms(ctx, "patch", "ssad.batcher.fanout")

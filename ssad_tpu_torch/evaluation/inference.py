@@ -16,7 +16,11 @@ stem's maxpool; other sizes run the module forward.  ``score_maps``
 adds a fitted detector's scores per window (models/detector.py), the
 (B, side, side) reshape and the blur ⊗ upsample to the image size;
 ``score_patch_maps`` and ``score_patch_maps_mahalanobis`` are its JAX
-names, scoring against a bank and a fitted Gaussian.
+names, scoring against a bank and a fitted Gaussian.  The patch path's
+spans (utils/profiling.span): ``ssad.patch.windows`` (windows and casts),
+``ssad.patch.stem``, ``ssad.patch.forward`` (trunk and head),
+``ssad.patch.knn`` (the detector's score) and ``ssad.patch.maps``
+(reshape, blur and upsample).
 """
 
 from __future__ import annotations
@@ -41,6 +45,7 @@ from ssad_tpu_torch.ops.patches import extract_patches
 from ssad_tpu_torch.train.memory_bank import MemoryBank, newest_first
 from ssad_tpu_torch.utils import convert
 from ssad_tpu_torch.utils.device import resolve_device
+from ssad_tpu_torch.utils.profiling import span
 
 
 class InferenceEngine:
@@ -70,16 +75,21 @@ class InferenceEngine:
         """Forward a (N, d, d, 3) patch batch; 32×32 patches take the
         fused stem."""
         if flat.shape[1] == stem_pool.PATCH and flat.shape[2] == stem_pool.PATCH:
-            x_stem = stem_pool.stem_pool(flat, *self.stem_affine())
-            return self.model.from_stem(x_stem)
-        return self.model(flat)
+            with span("ssad.patch.stem"):
+                x_stem = stem_pool.stem_pool(flat, *self.stem_affine())
+            with span("ssad.patch.forward"):
+                return self.model.from_stem(x_stem)
+        with span("ssad.patch.forward"):
+            return self.model(flat)
 
     def embed_grid(self, x_normalized, dim: int, stride: int):
         """Window extraction (bf16) + forward → (outputs, B, P)."""
-        x = torch.as_tensor(x_normalized, dtype=torch.float32).to(self.device)
-        p = extract_patches(x.to(torch.bfloat16), dim=dim, stride=stride)
-        b, n = p.shape[0], p.shape[1]
-        return self.patch_forward(p.reshape((b * n,) + tuple(p.shape[2:]))), b, n
+        with span("ssad.patch.windows"):
+            x = torch.as_tensor(x_normalized, dtype=torch.float32).to(self.device)
+            p = extract_patches(x.to(torch.bfloat16), dim=dim, stride=stride)
+            b, n = p.shape[0], p.shape[1]
+            flat = p.reshape((b * n,) + tuple(p.shape[2:]))
+        return self.patch_forward(flat), b, n
 
     def predict_patches(self, x_normalized, dim: int = 32, stride: int = 8):
         """(B, H, W, 3) → (logits (B·P, C), embeddings (B·P, D), P), rows
@@ -127,9 +137,12 @@ class InferenceEngine:
         with torch.inference_mode():
             out, b, n = self.embed_grid(x_normalized, dim, stride)
             side = int(round(n ** 0.5))
-            maps = score(out["latent_space"]).reshape(b, side, side)
-            if upsample_to is not None:
-                maps = im.upsample_anomaly_maps(maps, upsample_to)
+            with span("ssad.patch.knn"):
+                scores = score(out["latent_space"])
+            with span("ssad.patch.maps"):
+                maps = scores.reshape(b, side, side)
+                if upsample_to is not None:
+                    maps = im.upsample_anomaly_maps(maps, upsample_to)
         return maps
 
 

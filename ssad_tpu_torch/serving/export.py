@@ -63,6 +63,7 @@ from ssad_tpu_torch.models.peranet import build_model
 from ssad_tpu_torch.ops import image as im
 from ssad_tpu_torch.ops.knn import PALLAS_MAX_BANK_ROWS
 from ssad_tpu_torch.utils.device import resolve_device
+from ssad_tpu_torch.utils.profiling import span
 
 _MAGIC = b"SSADPT01"
 FORMAT = "ssad_tpu_torch.serving/1"
@@ -313,6 +314,14 @@ class ServedScorer:
     scoring call of both modes (k-NN: on the card a bank above
     PALLAS_MAX_BANK_ROWS rows is normalised and split once, on the first
     call, which the warmup makes).
+
+    Spans (utils/profiling.span), per chunk: ``ssad.scorer.upload`` (the
+    numpy chunk to a device tensor), ``ssad.scorer.launch``
+    (``score_tensor``: the host enqueuing the path; in image mode it
+    holds ``ssad.image.forward`` and ``ssad.image.knn``) and
+    ``ssad.scorer.readback`` (waiting for the device and the copy back;
+    the last chunk's also joins every chunk's rows into the arrays
+    returned).
     """
 
     def __init__(self, meta: dict, state_dict: dict, device=None, scales=None, **arrays):
@@ -355,9 +364,11 @@ class ServedScorer:
                             upsample_to=meta["upsample_to"])
             return (self.engine.score_maps(xn, self.detector.score, **geometry),)
         with torch.inference_mode():
-            logits, emb = self.engine.predict_batch(xn)
-            scores = self.detector.score(emb)
-            labels = (scores > self.threshold).to(torch.int32)
+            with span("ssad.image.forward"):
+                logits, emb = self.engine.predict_batch(xn)
+            with span("ssad.image.knn"):
+                scores = self.detector.score(emb)
+                labels = (scores > self.threshold).to(torch.int32)
         return scores, labels, logits
 
     def warmup(self, max_calls: int = 16, settled_s: float = 0.25) -> float:
@@ -381,14 +392,19 @@ class ServedScorer:
         for lo in range(0, x.shape[0], self.batch):
             chunk = x[lo : lo + self.batch]
             n = chunk.shape[0]
-            if n < self.batch:
-                chunk = np.pad(chunk, ((0, self.batch - n),) + ((0, 0),) * 3)
-            res = self.score_tensor(torch.from_numpy(chunk).to(self.device))
+            with span("ssad.scorer.upload"):
+                if n < self.batch:
+                    chunk = np.pad(chunk, ((0, self.batch - n),) + ((0, 0),) * 3)
+                xt = torch.from_numpy(chunk).to(self.device)
+            with span("ssad.scorer.launch"):
+                res = self.score_tensor(xt)
             if pending is not None:
-                outs.append(_to_host(*pending))
+                with span("ssad.scorer.readback"):
+                    outs.append(_to_host(*pending))
             pending = (res, n)
-        outs.append(_to_host(*pending))
-        return tuple(np.concatenate(parts, axis=0) for parts in zip(*outs))
+        with span("ssad.scorer.readback"):
+            outs.append(_to_host(*pending))
+            return tuple(np.concatenate(parts, axis=0) for parts in zip(*outs))
 
 
 def _to_host(res, n: int) -> Tuple[np.ndarray, ...]:

@@ -54,6 +54,7 @@ from typing import Callable, Optional, Sequence, Tuple
 import numpy as np
 
 from ssad_tpu_torch.serving.drift import ScoreTracker
+from ssad_tpu_torch.utils.profiling import span
 
 
 class Overloaded(RuntimeError):
@@ -90,6 +91,12 @@ class BatchingScorer:
     to the first request.  It counts no request or batch; ``warmup_s``
     is the sum of what it returned, and a warm-up that raises closes
     the batcher and raises from the constructor.
+
+    Under ``torch.profiler`` (utils/profiling.span) the collector's loop
+    is tiled by ``ssad.batcher.collect`` (waiting for a batch's first
+    request until the batch closes), and each batch's thread by
+    ``ssad.batcher.stack``, ``ssad.batcher.run`` (the scoring callable)
+    and ``ssad.batcher.fanout`` (rows back to the requests, counters).
     """
 
     def __init__(
@@ -115,6 +122,8 @@ class BatchingScorer:
         self._occupancies = collections.deque(maxlen=1024)
         self._n_requests = 0
         self._n_batches = 0
+        self._queue_wait_s = 0.0
+        self._latency_s = 0.0
         self._runner_batches = [0] * len(fns)
         self._closed = False
         #: how long close() waits for the collector and each runner
@@ -173,12 +182,17 @@ class BatchingScorer:
 
     def stats(self) -> dict:
         """Totals are lifetime counters; percentiles and occupancy are
-        over the last ≤1024 requests/batches.  With several callables
-        also ``replicas`` and ``replica_batches`` (batches per runner)."""
+        over the last ≤1024 requests/batches.  ``queue_wait_s_total``
+        (submit → its batch's scorer call) and ``latency_s_total``
+        (submit → answer) are summed over the answered requests, so the
+        mean over any window is the difference of two reads over the
+        difference of ``requests``.  With several callables also
+        ``replicas`` and ``replica_batches`` (batches per runner)."""
         with self._lock:
             lat = sorted(self._latencies)
             occ = list(self._occupancies)
             n_req, n_bat = self._n_requests, self._n_batches
+            wait_s, latency_s = self._queue_wait_s, self._latency_s
             per_runner = list(self._runner_batches)
 
         def pct(p):
@@ -187,6 +201,8 @@ class BatchingScorer:
         out = {
             "requests": n_req,
             "batches": n_bat,
+            "queue_wait_s_total": wait_s,
+            "latency_s_total": latency_s,
             "mean_batch_occupancy": float(np.mean(occ)) if occ else None,
             "latency_ms_p50": pct(0.50),
             "latency_ms_p95": pct(0.95),
@@ -233,28 +249,36 @@ class BatchingScorer:
         if self._run_queue is None:
             self._warm_this_thread(0)
         while True:
-            req = self._queue.get()
-            if req is None:
+            with span("ssad.batcher.collect"):
+                reqs, closing = self._collect()
+            if reqs:
+                self._dispatch(reqs)
+            if closing:
                 self._stop_runners()
                 self._cancel_pending()
                 return
-            reqs = [req]
-            deadline = time.perf_counter() + self.max_delay
-            while len(reqs) < self.batch:
-                budget = deadline - time.perf_counter()
-                if budget <= 0:
-                    break
-                try:
-                    nxt = self._queue.get(timeout=budget)
-                except queue.Empty:
-                    break
-                if nxt is None:
-                    self._dispatch(reqs)
-                    self._stop_runners()
-                    self._cancel_pending()
-                    return
-                reqs.append(nxt)
-            self._dispatch(reqs)
+
+    def _collect(self):
+        """(the next batch's requests, whether the sentinel came): the
+        first request, then more until the batch is full or
+        ``max_delay_ms`` has passed since the first."""
+        req = self._queue.get()
+        if req is None:
+            return [], True
+        reqs = [req]
+        deadline = time.perf_counter() + self.max_delay
+        while len(reqs) < self.batch:
+            budget = deadline - time.perf_counter()
+            if budget <= 0:
+                break
+            try:
+                nxt = self._queue.get(timeout=budget)
+            except queue.Empty:
+                break
+            if nxt is None:
+                return reqs, True
+            reqs.append(nxt)
+        return reqs, False
 
     def _dispatch(self, reqs):
         if self._run_queue is None:
@@ -283,20 +307,27 @@ class BatchingScorer:
     def _run(self, reqs, idx: int):
         n = len(reqs)
         try:
-            x = np.stack([r.image for r in reqs])
-            if n < self.batch:
-                x = np.pad(x, ((0, self.batch - n),) + ((0, 0),) * 3)
-            results = tuple(np.asarray(r) for r in self._fns[idx](x))
-            now = time.perf_counter()
-            with self._lock:
-                self._occupancies.append(n / self.batch)
-                self._latencies.extend(now - r.t_submit for r in reqs)
-                self._n_batches += 1
-                self._n_requests += n
-                self._runner_batches[idx] += 1
-            for i, r in enumerate(reqs):
-                r.result = tuple(res[i : i + 1] for res in results)
-                r.event.set()
+            with span("ssad.batcher.stack"):
+                x = np.stack([r.image for r in reqs])
+                if n < self.batch:
+                    x = np.pad(x, ((0, self.batch - n),) + ((0, 0),) * 3)
+            with span("ssad.batcher.run"):
+                start = time.perf_counter()
+                results = tuple(np.asarray(r) for r in self._fns[idx](x))
+            with span("ssad.batcher.fanout"):
+                now = time.perf_counter()
+                latencies = [now - r.t_submit for r in reqs]
+                with self._lock:
+                    self._occupancies.append(n / self.batch)
+                    self._latencies.extend(latencies)
+                    self._queue_wait_s += sum(start - r.t_submit for r in reqs)
+                    self._latency_s += sum(latencies)
+                    self._n_batches += 1
+                    self._n_requests += n
+                    self._runner_batches[idx] += 1
+                for i, r in enumerate(reqs):
+                    r.result = tuple(res[i : i + 1] for res in results)
+                    r.event.set()
         except Exception as e:  # the thread must keep running: fail this batch only
             for r in reqs:
                 r.error = e

@@ -51,7 +51,6 @@ import numpy as np
 import torch
 import torch.distributed as dist
 import torch.nn.functional as F
-from torch.profiler import record_function
 
 from ssad_tpu_torch.config import TrainConfig
 from ssad_tpu_torch.data import mvtec
@@ -62,9 +61,11 @@ from ssad_tpu_torch.ops.image import normalize_imagenet
 from ssad_tpu_torch.train.memory_bank import MemoryBank, init_bank, insert
 from ssad_tpu_torch.train.optim import StageOptimizer
 from ssad_tpu_torch.utils.device import resolve_device
+from ssad_tpu_torch.utils.profiling import span
 
-#: the step's profiler ranges, in the order it runs them
-STEP_GROUPS = ("synthesis", "forward", "backward", "optimizer", "bank_fill")
+#: the step's spans (utils/profiling.span), in the order it runs them
+STEP_GROUPS = ("ssad.train.synthesis", "ssad.train.forward", "ssad.train.backward",
+               "ssad.train.optimizer", "ssad.train.bank_fill")
 
 
 def bank_fill_embeddings(model: PeraNet, originals: torch.Tensor) -> torch.Tensor:
@@ -275,18 +276,18 @@ class Trainer:
         gradients until the next step."""
         model, opt, dp = state.model, state.optimizer, self.data_group
         model.train()
-        with record_function("synthesis"):
+        with span("ssad.train.synthesis"):
             x, y, orig = self.make_batch(dd, *uploaded)
-        with record_function("forward"):
+        with span("ssad.train.forward"):
             xs, ys = (x, y) if dp is None else (dp.rows(x), dp.rows(y))
             logits = model(xs)["classifier"]
             loss = F.cross_entropy(logits, ys)
-        with record_function("backward"):
+        with span("ssad.train.backward"):
             opt.zero_grad()
             loss.backward()
             if dp is not None:
                 dp.average_gradients(opt.params)
-        with record_function("optimizer"):
+        with span("ssad.train.optimizer"):
             opt.step()
         logits = logits.detach()
         if dp is not None:
@@ -294,7 +295,7 @@ class Trainer:
         y_hat = logits.argmax(dim=-1)
         bank = state.bank
         if fill:
-            with record_function("bank_fill"):
+            with span("ssad.train.bank_fill"):
                 rows, mask = bank_fill_subset(self.cfg.model.bank_fill_rows, y, y_hat, orig)
                 bank = insert(bank, bank_fill_embeddings(model, rows), mask)
         metrics = {"loss": loss.detach(), "accuracy": (y_hat == y).float().mean(),

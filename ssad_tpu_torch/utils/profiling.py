@@ -9,7 +9,8 @@ Counterpart of ssad_tpu/utils/profiling.py:
 * ``StepTimer``: wall-clock per-step stats, synchronising on the result's
   device (``block_until_ready``), reporting mean/p50/p95 and throughput;
 * ``device_memory_stats()``: live per-card memory from
-  ``torch.cuda.memory_stats``.
+  ``torch.cuda.memory_stats``;
+* ``span(name)``: a named host range on the served and training paths.
 """
 
 from __future__ import annotations
@@ -20,6 +21,8 @@ from typing import Dict, List, Optional
 
 import numpy as np
 import torch
+from torch._C._autograd import _profiler_enabled
+from torch._C._profiler import _RecordFunctionFast
 
 
 @contextlib.contextmanager
@@ -33,6 +36,27 @@ def trace(logdir: str):
         on_trace_ready=torch.profiler.tensorboard_trace_handler(str(logdir)),
     ):
         yield
+
+
+_NO_SPAN = contextlib.nullcontext()
+
+
+def span(name: str):
+    """``with span('ssad.<layer>.<step>'): ...``: the block as one host op
+    of that name on ``torch.profiler``'s own clock, the clock of the
+    device events, so a trace can put the card's idle time down to it.
+
+    A plain CPU op, not a user annotation: it leaves no device-side event
+    of its name in the trace.  Only ops of the thread that started the
+    profiler are recorded; names are fixed strings, so a trace sums them
+    by name, and one batch's spans are linked by nesting on one thread.
+
+    With no profiler running on this thread it records nothing (under a
+    microsecond a span), and a span entered then stays a no-op if a
+    profiler starts inside it (the fast record function cannot leave a
+    range it never entered); a span still open when the profiler stops
+    ends there."""
+    return _RecordFunctionFast(name) if _profiler_enabled() else _NO_SPAN
 
 
 def block_until_ready(x):

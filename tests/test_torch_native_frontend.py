@@ -58,7 +58,9 @@ pytestmark = pytest.mark.skipif(
 )
 PACKAGES = {"port": (pserver, pnative, pdrift), "jax": (jserver, jnative, jdrift)}
 IMAGE_META = {"mode": "image", "imsize": [8, 8], "threshold": 100.0}
-DROP = {"ms", "latency_ms_p50", "latency_ms_p95"}
+#: timings, unequal between two servers; the last two are the port's own
+#: lifetime sums (the JAX batcher has none), held in test_torch_tracing.py
+DROP = {"ms", "latency_ms_p50", "latency_ms_p95", "queue_wait_s_total", "latency_s_total"}
 
 
 def _sum_scorer(x):
@@ -192,10 +194,12 @@ def test_routes_answer_as_jax():
             got += [raw(srv.port, _get_req(p))[0] for p in ("/healthz", "/readyz", "/stats")]
             metrics = raw(srv.port, _get_req("/metrics"))[0]
             ts = srv.transport_stats()
-            return bodies(got), metrics, ts
+            return bodies(got), metrics, ts, json.loads(got[3][2])
 
-        (port, pmetrics, pts), (jax_, jmetrics, jts) = both(servers, session)
+        (port, pmetrics, pts, pstats), (jax_, jmetrics, jts, jstats) = both(servers, session)
     assert port == jax_
+    assert pstats["latency_s_total"] >= pstats["queue_wait_s_total"] > 0
+    assert "latency_s_total" not in jstats and "queue_wait_s_total" not in jstats
     assert port[0] == (200, {"score": 192.0, "label": 1, "threshold": 100.0})
     assert port[1] == (200, {"ok": True, "mode": "image"})
     assert port[2] == (200, {"ready": True})

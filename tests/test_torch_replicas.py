@@ -11,8 +11,9 @@ Held, with stub callables (no device on the hot path):
 * each callable runs on one runner thread only and never overlaps
   itself, while runners do overlap one another;
 * ``stats()``: ``replicas`` and ``replica_batches`` (summing to
-  ``batches``) with several callables, and the JAX batcher's keys and
-  counters from the same submissions; one callable: no replica keys;
+  ``batches``) with several callables, and the JAX batcher's keys (plus
+  the port's two lifetime sums) and counters from the same submissions;
+  one callable: no replica keys;
 * a failing batch fails only its own requests; ``close()`` joins with
   staged batches and leaves no request waiting, and a collector wedged
   in a long call is not drained under it;
@@ -161,7 +162,10 @@ def test_stats_count_per_replica_as_jax_does():
         finally:
             sc.close()
     port, jax_ = out["port"], out["jax"]
-    assert set(port) == set(jax_)
+    # the port's two lifetime sums for a window's mean wait and latency
+    # are its own; every key of the JAX batcher is there
+    assert set(port) == set(jax_) | {"queue_wait_s_total", "latency_s_total"}
+    assert port["latency_s_total"] >= port["queue_wait_s_total"] > 0
     for key in ("requests", "batches", "replicas", "max_queue", "queue_depth"):
         assert port[key] == jax_[key], key
     assert port["replicas"] == 3 and port["requests"] == 10
