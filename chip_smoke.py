@@ -14,7 +14,7 @@ the batch.)  It imports nothing of JAX or of the JAX package.  Phases
 
 1. Print the card's name and power limit (nvidia-smi), build every CUDA
    kernel of the serving paths from ssad_tpu_torch/csrc (knn, knn_tiled,
-   stem_pool: one nvcc per source, started together) and print ptxas's
+   stem_pool, bn_act: one nvcc per source, started together) and print ptxas's
    register and spill lines and any note that it serialized wgmmas.
    Then, on the host (``stream:``), the SHA-256 of the first batch of
    ``utils.jax_random.JaxTrainStream(0, …)`` (the JAX package's random
@@ -49,7 +49,15 @@ the batch.)  It imports nothing of JAX or of the JAX package.  Phases
      the main shapes ``ms`` is timed against the TiledBank and
      ``ms_raw_bank`` against the raw bank; those lines also give the
      plan's splits and waves, the group depth G (from the built kernel)
-     and the CTAs resident per SM.
+     and the CTAs resident per SM;
+   * the inference BatchNorm → (+ residual) → ReLU pass (16-byte loads,
+     each thread's channel parameters in registers) at the widest sites
+     of both trunks at the served batch, bf16, channels last: wrn50's
+     6,728 × 256 × 16 × 16 with the projection's BatchNorm as residual and
+     r18's 6,728 × 64 × 16 × 16 with the identity; bit-equal to its plain
+     version, ms beside the bytes bound and the plain chain's ms.  Phases
+     3 and 4 count its launches (17 a forward on the image path, 16 on
+     the patch path).
 3. Drive the image-mode serving path at full width: PeraNet/ResNet-18,
    256×256×3 inputs, 512-d embeddings, bf16 compute, seeded random
    weights in the reference layout; a 1000-row bank embedded from
@@ -300,6 +308,7 @@ import dataclasses
 import http.client
 import io
 import json
+import math
 import shutil
 import signal
 import subprocess
@@ -322,6 +331,10 @@ KNN_F32_TOL = 3e-5  # the bf16x3 function against the f32 one
 F32_MODEL_TOL = 1e-4
 STEM_RTOL, STEM_ATOL, STEM_MAX_FLIPPED = 2.0**-7, 1e-6, 1e-3
 PATCH_F32_MODEL_TOL = 1e-3  # a one-ulp bf16 flip in the stem carries through the backbone
+#: csrc/bn_act.cu launches a ResNet-18 forward: 8 basic blocks × 2, and the
+#: stem's BatchNorm on the image path (the patch path's is in the stem kernel)
+BN_ACT_SITES_FROM_STEM, BN_ACT_SITES_IMAGE = 16, 17
+BN_ACT_SITES_WIDE_FROM_STEM = 48  # Wide-ResNet-50-2: 16 bottleneck blocks × 3
 N_REQUESTS, N_THREADS = 32, 4
 IMSIZE, BATCH, BANK_ROWS = 256, 8, 1000
 #: patch mode: 63 train-good images (50 train + 13 val), 841 windows each
@@ -633,6 +646,113 @@ def check_stem_kernel(device):
     return records
 
 
+#: csrc/bn_act.cu's timed sites, bf16 and channels last at the served patch
+#: batch, each with its ReLU: (name, (N, C, H, W), residual)
+BN_ACT_SITES = (
+    ("wrn50_layer1_proj", (BATCH * WINDOWS, 256, 16, 16), "normed"),
+    ("r18_layer1", (BATCH * WINDOWS, 64, 16, 16), "identity"),
+)
+
+
+def bn_act_bound(shape, residual: str):
+    """(bound_ms, bytes): the bf16 activation and residual read once, the
+    output written once, the f32 channel vectors read once, over the HBM
+    rate (a few flops a byte: the bytes bound it)."""
+    n, c = math.prod(shape), shape[1]
+    nbytes = 2 * n * (2 if residual == "none" else 3) + 4 * c * (6 if residual == "normed" else 3)
+    return nbytes / HBM_BYTES_PER_S * 1e3, nbytes
+
+
+def check_bn_act_kernel(device):
+    """The inference BatchNorm kernel vs its plain version, bit for bit, at
+    the widest sites of both trunks at the served batch; kernel and plain
+    ms beside the bytes bound."""
+    import torch
+
+    from ssad_tpu_torch.ops import bn_act
+
+    gen = torch.Generator(device=device).manual_seed(2)
+
+    def activation(shape):
+        n, c, h, w = shape
+        x = torch.randn((n, h, w, c), generator=gen, device=device)
+        return x.to(torch.bfloat16).permute(0, 3, 1, 2)  # channels last, as cuDNN returns it
+
+    def affine(c):
+        var = 0.5 + 1.5 * torch.rand(c, generator=gen, device=device)
+        weight = 0.5 + torch.rand(c, generator=gen, device=device)
+        return (0.3 * torch.randn(c, generator=gen, device=device), torch.rsqrt(var + 1e-5) * weight,
+                0.2 * torch.randn(c, generator=gen, device=device))
+
+    records = {}
+    for name, shape, residual in BN_ACT_SITES:
+        args = (activation(shape), affine(shape[1]), True,
+                None if residual == "none" else activation(shape),
+                affine(shape[1]) if residual == "normed" else None)
+        out = bn_act.bn_act_cuda(*args)
+        differ = bits_differ(out, bn_act.bn_act_plain(*args))
+        if differ:
+            fail(f"bn_act kernel vs plain at {name} {shape}: {differ} elements' bits differ")
+        del out
+        rec = {"shape": list(shape), "dtype": "bfloat16", "layout": "channels_last",
+               "residual": residual, "relu": True,
+               "ms": cuda_ms(lambda: bn_act.bn_act_cuda(*args)),
+               "plain_ms": cuda_ms(lambda: bn_act.bn_act_plain(*args)),
+               "device_us": device_us(lambda: bn_act.bn_act_cuda(*args), "bn_act", 20)}
+        rec["bound_ms"], rec["bytes"] = bn_act_bound(shape, residual)
+        rec["share_of_bound"] = rec["bound_ms"] / rec["ms"]
+        records[name] = rec
+        print(f"bn_act {name}: {json.dumps(rec)}", flush=True)
+        del args
+    return records
+
+
+def bn_act_record(records, patch_launches: int, image_launches: int) -> dict:
+    """The kernel's line of the records: launches on the patch and image
+    paths (phases 3, 4) and the timed sites; main() adds the other paths."""
+    return {"name": "bn_act", "route": "cuda", "source": "ssad_tpu_torch/csrc/bn_act.cu",
+            "replaces": "none: XLA fused the BatchNorm, the residual add and the ReLU on the TPU",
+            "launches": patch_launches, "image_path_launches": image_launches, "path": "patch",
+            "tolerance": "bit-equal", "sites": records}
+
+
+def bits_differ(a, b) -> int:
+    """Elements of ``a`` and ``b`` (one float dtype and shape) whose raw
+    bits differ, the sign of a zero included; two NaNs count as equal."""
+    import torch
+
+    if a.dtype != b.dtype or a.shape != b.shape:
+        return max(a.numel(), b.numel(), 1)
+    ints = {torch.bfloat16: torch.int16, torch.float16: torch.int16, torch.float32: torch.int32}
+    both_nan = torch.isnan(a) & torch.isnan(b)
+    return int(((a.view(ints[a.dtype]) != b.view(ints[b.dtype])) & ~both_nan).sum())
+
+
+@contextlib.contextmanager
+def checking_bn_act():
+    """Each call of the bn_act kernel wrapper held against ``bn_act_plain``
+    on its own inputs when it is made, bit for bit (its inputs are not
+    kept: a served batch's activations take GBs) → [(x's shape, elements
+    whose bits differ)]; its ``launches`` count carries over and back."""
+    from ssad_tpu_torch.ops import bn_act
+
+    original, calls = bn_act.bn_act_cuda, []
+
+    def wrapper(*args, **kw):
+        out = original(*args, **kw)
+        key = "x".join(str(d) for d in args[0].shape)
+        calls.append((key, bits_differ(out, bn_act.bn_act_plain(*args, **kw))))
+        return out
+
+    wrapper.launches = original.launches  # the wrapper's body counts on this name
+    bn_act.bn_act_cuda = wrapper
+    try:
+        yield calls
+    finally:
+        original.launches = wrapper.launches
+        bn_act.bn_act_cuda = original
+
+
 def tiled_bound(n: int, m: int, d: int):
     """(bound_ms, bound_by): inputs read once and scores written once over
     the HBM rate, vs the three bf16 products per element pair over the
@@ -749,7 +869,8 @@ def http_fanout(port: int, bodies, paths, threads: int = N_THREADS) -> tuple:
 
 
 def drive_serving_path(device, work: Path):
-    """Phase 3: the full-width serving path through the user entry points."""
+    """Phase 3: the full-width serving path through the user entry points.
+    Returns (k-NN launches, bn_act launches)."""
     import torch
     from PIL import Image
 
@@ -758,6 +879,7 @@ def drive_serving_path(device, work: Path):
     from ssad_tpu_torch.data.mvtec import load_image
     from ssad_tpu_torch.evaluation.inference import InferenceEngine
     from ssad_tpu_torch.models.peranet import build_model
+    from ssad_tpu_torch.ops import bn_act
     from ssad_tpu_torch.ops import image as im
     from ssad_tpu_torch.ops import knn
     from ssad_tpu_torch.serving.cli import _load_artifact_models
@@ -799,6 +921,7 @@ def drive_serving_path(device, work: Path):
 
     # ---- the main path: counts to 0 just before, read just after ----------
     knn.knn_cosine_scores_cuda.launches = 0
+    bn_act.bn_act_cuda.launches = 0
     artifact = work / "bottle_image.ssadpt"
     t0 = time.perf_counter()
     rc = cli.main(["export", "--models-dir", str(models_dir), "--subject", "bottle",
@@ -815,12 +938,17 @@ def drive_serving_path(device, work: Path):
     finally:
         server.stop()
     launches = knn.knn_cosine_scores_cuda.launches
+    bn_act_launches = bn_act.bn_act_cuda.launches
     # ---- end of the main path ---------------------------------------------
     print(f"main path: export {export_s:.2f} s, warmup {warmup_s:.2f} s, "
           f"{N_REQUESTS} requests in {http_s:.3f} s, batches {batcher_stats['batches']}, "
-          f"knn launches {launches}", flush=True)
+          f"knn launches {launches}, bn_act launches {bn_act_launches}", flush=True)
     if launches < 1 + batcher_stats["batches"]:
         fail(f"knn kernel launches {launches} < fit + {batcher_stats['batches']} batches")
+    # every image forward: the stem's BatchNorm + ResNet-18's 16 sites
+    if bn_act_launches < BN_ACT_SITES_IMAGE * batcher_stats["batches"]:
+        fail(f"bn_act launches {bn_act_launches} < {BN_ACT_SITES_IMAGE} sites × "
+             f"{batcher_stats['batches']} batches")
     if meta["model"]["compute_dtype"] != "bfloat16" or meta["batch"] != BATCH:
         fail(f"artifact header {meta['model']}, batch {meta['batch']}")
 
@@ -890,7 +1018,7 @@ def drive_serving_path(device, work: Path):
     serving["f32_cuda_vs_cpu_embedding_max_abs"] = emb_err
     serving["f32_cuda_vs_cpu_logits_max_abs"] = logit_err
     print(f"serving: {json.dumps(serving)}", flush=True)
-    return launches
+    return launches, bn_act_launches
 
 
 def drive_patch_path(device, work: Path, seed: int = 1):
@@ -908,7 +1036,7 @@ def drive_patch_path(device, work: Path, seed: int = 1):
     from ssad_tpu_torch.evaluation.inference import InferenceEngine
     from ssad_tpu_torch.models.peranet import build_model
     from ssad_tpu_torch.ops import image as im
-    from ssad_tpu_torch.ops import knn, stem_pool
+    from ssad_tpu_torch.ops import bn_act, knn, stem_pool
     from ssad_tpu_torch.serving.cli import _load_artifact_models
     from ssad_tpu_torch.serving.server import AnomalyHTTPServer, coerce_image_array
     from ssad_tpu_torch.utils.ref_checkpoint import save_reference_checkpoint
@@ -961,6 +1089,7 @@ def drive_patch_path(device, work: Path, seed: int = 1):
         "knn_cosine_scores": knn.knn_cosine_scores_cuda.launches,
         "knn_cosine_scores_tiled": knn.knn_cosine_scores_tiled_cuda.launches,
         "stem_pool": stem_pool.stem_pool_cuda.launches,
+        "bn_act": bn_act.bn_act_cuda.launches,
     }
     # ---- end of the patch path --------------------------------------------
     batches = batcher_stats["batches"]
@@ -975,6 +1104,11 @@ def drive_patch_path(device, work: Path, seed: int = 1):
     if launches["knn_cosine_scores_tiled"] < 1 + calibration_chunks + batches:
         fail(f"tiled knn launches {launches['knn_cosine_scores_tiled']} < fit + "
              f"{calibration_chunks} calibration chunks + {batches} batches")
+    # every forward of the path starts after the stem: 16 sites of ResNet-18
+    forwards = normality_chunks + calibration_chunks + batches
+    if launches["bn_act"] < BN_ACT_SITES_FROM_STEM * forwards:
+        fail(f"bn_act launches {launches['bn_act']} < {BN_ACT_SITES_FROM_STEM} sites × "
+             f"{forwards} forwards")
 
     scorer = batcher._fns[0]
     fit_rows = NORMALITY_IMAGES * WINDOWS - round(0.3 * NORMALITY_IMAGES * WINDOWS)
@@ -1888,19 +2022,21 @@ def write_eval_split(category_dir: Path, seed: int = 5, split=EVAL_SPLIT) -> int
 
 
 def _zero_launches() -> None:
-    from ssad_tpu_torch.ops import knn, stem_pool
+    from ssad_tpu_torch.ops import bn_act, knn, stem_pool
 
     knn.knn_cosine_scores_cuda.launches = 0
     knn.knn_cosine_scores_tiled_cuda.launches = 0
     stem_pool.stem_pool_cuda.launches = 0
+    bn_act.bn_act_cuda.launches = 0
 
 
 def _eval_launches():
-    from ssad_tpu_torch.ops import knn, stem_pool
+    from ssad_tpu_torch.ops import bn_act, knn, stem_pool
 
     return {"knn_cosine_scores": knn.knn_cosine_scores_cuda.launches,
             "knn_cosine_scores_tiled": knn.knn_cosine_scores_tiled_cuda.launches,
-            "stem_pool": stem_pool.stem_pool_cuda.launches}
+            "stem_pool": stem_pool.stem_pool_cuda.launches,
+            "bn_act": bn_act.bn_act_cuda.launches}
 
 
 def _run_cli(argv) -> tuple:
@@ -2265,9 +2401,10 @@ def drive_evaluation(device, work: Path) -> dict:
     card = card_line()
     for name, run in runs.items():
         print(f"eval {name}: {json.dumps(run)} ({card})", flush=True)
-    need = {"evaluate_image": ["knn_cosine_scores"], "infer_image": ["knn_cosine_scores"],
-            "evaluate_patch": ["stem_pool", "knn_cosine_scores_tiled"],
-            "infer_patch": ["stem_pool", "knn_cosine_scores_tiled"]}
+    need = {"evaluate_image": ["knn_cosine_scores", "bn_act"],
+            "infer_image": ["knn_cosine_scores", "bn_act"],
+            "evaluate_patch": ["stem_pool", "knn_cosine_scores_tiled", "bn_act"],
+            "infer_patch": ["stem_pool", "knn_cosine_scores_tiled", "bn_act"]}
     for name, kernels in need.items():
         for k in kernels:
             if runs[name]["launches"][k] < 1:
@@ -2395,6 +2532,7 @@ def drive_wide_patch_path(device, work: Path) -> dict:
     from ssad_tpu_torch.evaluation.inference import InferenceEngine, normality_embeddings
     from ssad_tpu_torch.models.detector import AnomalyDetector
     from ssad_tpu_torch.models.peranet import build_model, init_model
+    from ssad_tpu_torch.ops import bn_act
     from ssad_tpu_torch.ops import image as im
     from ssad_tpu_torch.ops import knn, stem_pool
     from ssad_tpu_torch.ops.coreset import kcenter_greedy
@@ -2426,6 +2564,7 @@ def drive_wide_patch_path(device, work: Path) -> dict:
     # ---- the wide patch path: counts to 0 just before, read just after -----
     knn.knn_cosine_scores_tiled_cuda.launches = 0
     stem_pool.stem_pool_cuda.launches = 0
+    bn_act.bn_act_cuda.launches = 0
     torch.cuda.reset_peak_memory_stats(device)
     artifact = work / "wide_patch.ssadpt"
     # every tiled k-NN call of the path is recorded: the fit's calibration,
@@ -2450,7 +2589,8 @@ def drive_wide_patch_path(device, work: Path) -> dict:
         finally:
             server.stop()
         launches = {"knn_cosine_scores_tiled": knn.knn_cosine_scores_tiled_cuda.launches,
-                    "stem_pool": stem_pool.stem_pool_cuda.launches}
+                    "stem_pool": stem_pool.stem_pool_cuda.launches,
+                    "bn_act": bn_act.bn_act_cuda.launches}
     # ---- end of the wide patch path ----------------------------------------
     rec.update(launches=launches, batches=batches,
                peak_memory_gib=torch.cuda.max_memory_allocated(device) / 2**30,
@@ -2471,8 +2611,9 @@ def drive_wide_patch_path(device, work: Path) -> dict:
         fail(f"wide patch path: tiled kernel calls vs plain tiled k-NN {errs} > {KNN_TOL}")
     del calls
     val_chunks = -(-(PATCH_IMAGES - NORMALITY_IMAGES) // 4)
-    need = {"stem_pool": -(-WIDE_NORMALITY // 4) + val_chunks + batches,
-            "knn_cosine_scores_tiled": 1 + val_chunks + batches}
+    forwards = -(-WIDE_NORMALITY // 4) + val_chunks + batches
+    need = {"stem_pool": forwards, "knn_cosine_scores_tiled": 1 + val_chunks + batches,
+            "bn_act": BN_ACT_SITES_WIDE_FROM_STEM * forwards}
     for name, least in need.items():
         if launches[name] < least:
             fail(f"wide patch path: {name} launched {launches[name]} times < {least}")
@@ -2761,22 +2902,24 @@ def drive_scorers(device, work: Path) -> dict:
 
 @contextlib.contextmanager
 def recording_every_kernel():
-    """Every call of the three kernel wrappers, recorded: {kernel name:
-    calls} (``recording``)."""
+    """Every call of the four kernel wrappers, recorded: {kernel name:
+    calls} (``recording``; bn_act's checked as it is made,
+    ``checking_bn_act``)."""
     from ssad_tpu_torch.ops import knn, stem_pool
 
     with recording(knn, "knn_cosine_scores_cuda") as resident, \
             recording(knn, "knn_cosine_scores_tiled_cuda") as tiled, \
-            recording(stem_pool, "stem_pool_cuda") as stem:
+            recording(stem_pool, "stem_pool_cuda") as stem, checking_bn_act() as bn:
         yield {"knn_cosine_scores": resident, "knn_cosine_scores_tiled": tiled,
-               "stem_pool": stem}
+               "stem_pool": stem, "bn_act": bn}
 
 
 def held_against_plain(calls: dict, what: str) -> dict:
     """Each recorded kernel call against its plain version on its own
     inputs: the k-NN kernels within KNN_TOL, the stem at phase 2's
-    tolerance → {kernel: {shape: largest |Δ|}} (the stem's also its
-    share of elements not bit-equal)."""
+    tolerance, bn_act bit for bit → {kernel: {shape: largest |Δ|}} (the
+    stem's also its share of elements not bit-equal; bn_act's the elements
+    whose bits differ, 0)."""
     import torch
 
     from ssad_tpu_torch.ops import knn, stem_pool
@@ -2787,6 +2930,13 @@ def held_against_plain(calls: dict, what: str) -> dict:
     for name, recorded in calls.items():
         errs = {}
         for call in recorded:
+            if name == "bn_act":
+                key, differ = call
+                errs[key] = max(errs.get(key, 0), differ)
+                if differ:
+                    fail(f"{what}: bn_act kernel call on {key} vs plain: {differ} elements' "
+                         f"bits differ")
+                continue
             if name == "stem_pool":
                 x, k4, scale, bias, got = call
                 want = stem_pool.stem_pool_plain(x, k4, scale, bias).float()
@@ -3917,7 +4067,7 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
 
     t0 = time.perf_counter()
-    libs = _cuda.build(["knn", "knn_tiled", "stem_pool"])
+    libs = _cuda.build(["knn", "knn_tiled", "stem_pool", "bn_act"])
     print(f"build: {sorted(libs)} in {time.perf_counter() - t0:.2f} s", flush=True)
     for name, log in _cuda.build_logs.items():
         for line in log.splitlines():
@@ -3936,9 +4086,10 @@ def main() -> int:
     records = check_knn_kernel(device)
     stem_records = check_stem_kernel(device)
     tiled_records = check_tiled_kernel(device)
+    bn_records = check_bn_act_kernel(device)
     work = Path(tempfile.mkdtemp(prefix=".chip_smoke_", dir=ROOT))
     try:
-        launches = drive_serving_path(device, work)
+        launches, image_bn_act_launches = drive_serving_path(device, work)
         patch_launches, _ = drive_patch_path(device, work)
         drive_synthesis(device, work)
         train = drive_training(device, work)
@@ -4017,6 +4168,15 @@ def main() -> int:
                                  + scorers["coreset"]["launches"]["stem_pool"]
                                  + scorers["mahalanobis"]["stem_pool_launches"]),
     })
+    kernels.append(bn_act_record(bn_records, patch_launches["bn_act"], image_bn_act_launches))
+    kernels[-1].update(
+        eval_path_launches=evaluation["launches"]["bn_act"],
+        scorer_path_launches=(scorers["wide"]["launches"]["bn_act"]
+                              + scorers["coreset"]["launches"]["bn_act"]),
+        readiness_path_launches=composed["readiness"]["launches"]["bn_act"],
+        readiness_path_vs_plain=composed["readiness"]["vs_plain"]["bn_act"],
+        multi15_path_launches=composed["multi15"]["launches"]["bn_act"],
+        multi15_path_vs_plain=composed["multi15"]["vs_plain"]["bn_act"])
     for rec in kernels:
         name = rec["name"]
         rec["localize_path_launches"] = extras["localize"]["launches"][name]

@@ -19,6 +19,19 @@ parameters and are cast per call, as Flax does), and each BatchNorm
 computes its affine in f32 and rounds once to bf16 — Flax's
 ``_normalize`` order, (x − mean)·(rsqrt(var + eps)·scale) + bias.
 
+In eval mode with autograd recording nothing (``inference_mode``,
+``no_grad``, or no tensor requiring grad) and no torch function mode
+watching the forward op by op (``one_pass``), each block's
+BatchNorm → (+ shortcut) → ReLU chains and the stem's BatchNorm + ReLU
+run as ``ops.bn_act`` passes: the same arithmetic in the same order, the
+CUDA kernel csrc/bn_act.cu on the card (one read and one write of each
+activation where the chain makes eight passes) and the chain's torch
+operations on the CPU.  The projection shortcut's BatchNorm is computed
+in the pass that adds it.  Training, eval with a graph recorded, and a
+forward under a function mode (train/_pinning's ``Recorder`` and
+``Pinned`` read and pin each ReLU, which the kernel does not expose) run
+the chain module by module.
+
 BatchNorm in training mode is Flax's ``nn.BatchNorm(momentum=0.9,
 epsilon=1e-5)`` (flax/linen/normalization.py ``_compute_stats``,
 ``_normalize``): batch mean and variance reduced in f32 over every axis
@@ -46,6 +59,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ssad_tpu_torch.ops.bn_act import bn_act
 from ssad_tpu_torch.ops.stem_pool import fold_stem_kernel
 
 #: base width of each stage (torchvision's ``planes``)
@@ -108,6 +122,27 @@ class FlaxBatchNorm:
         y = (x.float() - mean.view(shape)) * mul.view(shape)
         return (y + self.bias.view(shape)).to(dtype)
 
+    def inference_affine(self):
+        """(mean, mul, bias) of the eval-mode affine (x − mean)·mul + bias,
+        mul computed as ``forward`` computes it: ``ops.bn_act``'s input."""
+        return self.running_mean, torch.rsqrt(self.running_var + self.eps) * self.weight, self.bias
+
+
+def one_pass(x: torch.Tensor, module: nn.Module, norms) -> bool:
+    """Whether ``module``'s BatchNorm → (+ residual) → ReLU chains on input
+    ``x`` run as ``ops.bn_act`` passes: every one of ``norms`` in eval mode
+    with x's dtype as its output dtype, no torch function mode watching
+    the operations, and autograd recording nothing (no grad mode, or
+    neither x nor a parameter of ``module`` requires grad).  Otherwise
+    (training, a graph being recorded, or a mode that sees each ReLU) the
+    chain runs as it is."""
+    if any(bn.training or bn.out_dtype not in (None, x.dtype) for bn in norms):
+        return False
+    if torch._C._is_torch_function_mode_enabled():
+        return False
+    return not torch.is_grad_enabled() or not (
+        x.requires_grad or any(p.requires_grad for p in module.parameters()))
+
 
 class BatchNorm2d(FlaxBatchNorm, nn.BatchNorm2d):
     def __init__(self, num_features: int, out_dtype=None):
@@ -139,7 +174,13 @@ class BasicBlock(nn.Module):
             )
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        residual = x if self.downsample is None else self.downsample(x)
+        ds = self.downsample
+        if one_pass(x, self, (self.bn1, self.bn2) + (() if ds is None else (ds[1],))):
+            residual = x if ds is None else ds[0](x)
+            y = bn_act(self.conv1(x), self.bn1.inference_affine())
+            return bn_act(self.conv2(y), self.bn2.inference_affine(), residual=residual,
+                          residual_affine=None if ds is None else ds[1].inference_affine())
+        residual = x if ds is None else ds(x)
         y = F.relu(self.bn1(self.conv1(x)))
         y = self.bn2(self.conv2(y))
         return F.relu(y + residual)
@@ -168,7 +209,14 @@ class BottleneckBlock(nn.Module):
             )
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        residual = x if self.downsample is None else self.downsample(x)
+        ds = self.downsample
+        if one_pass(x, self, (self.bn1, self.bn2, self.bn3) + (() if ds is None else (ds[1],))):
+            residual = x if ds is None else ds[0](x)
+            y = bn_act(self.conv1(x), self.bn1.inference_affine())
+            y = bn_act(self.conv2(y), self.bn2.inference_affine())
+            return bn_act(self.conv3(y), self.bn3.inference_affine(), residual=residual,
+                          residual_affine=None if ds is None else ds[1].inference_affine())
+        residual = x if ds is None else ds(x)
         y = F.relu(self.bn1(self.conv1(x)))
         y = F.relu(self.bn2(self.conv2(y)))
         y = self.bn3(self.conv3(y))
@@ -223,7 +271,10 @@ class ResNet(nn.Module):
             x = F.conv2d(F.pad(x, (2, 1, 2, 1)), w)
         else:
             x = self.conv1(x)
-        x = F.relu(self.bn1(x))
+        if one_pass(x, self.bn1, (self.bn1,)):
+            x = bn_act(x, self.bn1.inference_affine())
+        else:
+            x = F.relu(self.bn1(x))
         x = F.max_pool2d(x, 3, 2, 1)  # implicit −inf padding, as in Flax
         return self.forward_stages(x)
 

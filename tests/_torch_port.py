@@ -47,3 +47,26 @@ def cuda_device():
 
 def seeded(shape, seed, low=0.0, high=1.0):
     return np.random.default_rng(seed).uniform(low, high, shape).astype(np.float32)
+
+
+def seeded_state_dict(model, seed):
+    """Seeded weights for every key of ``model``: He-scaled convolutions and
+    dense layers, BatchNorm statistics off the identity."""
+    rng = np.random.default_rng(seed)
+    sd = {}
+    for k, v in model.state_dict().items():
+        shape = tuple(v.shape)
+        if k.endswith("num_batches_tracked"):
+            a = np.zeros(shape)
+        elif k.endswith("running_mean"):
+            a = rng.normal(0, 0.1, shape)
+        elif k.endswith("running_var"):
+            a = rng.uniform(0.5, 2.0, shape)
+        elif v.ndim >= 2:
+            a = rng.normal(0, v[0].numel() ** -0.5, shape)
+        elif k.endswith("weight"):
+            a = rng.uniform(0.8, 1.2, shape)
+        else:
+            a = rng.normal(0, 0.05, shape)
+        sd[k] = torch.tensor(a, dtype=v.dtype)
+    return sd
