@@ -88,7 +88,9 @@ class DataConfig:
 class ModelConfig:
     """PeraNet architecture (reference models.py:21-146)."""
 
-    #: resnet18 | resnet34 | resnet50 | wide_resnet50_2 (models/resnet.py)
+    #: resnet18 | resnet34 | resnet50 | wide_resnet50_2 (models/resnet.py) |
+    #: dinov2_vitg14_reg (models/vit.py: a transformer trunk, image mode
+    #: only; no patch mode, Grad-CAM or training)
     backbone: str = "resnet18"
     #: multi-scale feature taps concatenated with the pooled output
     layer_outputs: Tuple[str, ...] = ("layer2", "layer3")
@@ -100,8 +102,8 @@ class ModelConfig:
     #: embeds every accepted y==0 ∧ ŷ==0 row, the reference behaviour
     #: (models.py:270-275)
     bank_fill_rows: Optional[int] = None
-    #: dtype of the backbone's convolutions and BatchNorms; the head runs
-    #: in float32 either way
+    #: dtype of the backbone's convolutions and BatchNorms (a transformer
+    #: trunk's products and attention); the head runs in float32 either way
     compute_dtype: str = "bfloat16"
     #: the JAX package's space-to-depth stem (a TPU layout of the same
     #: 7×7/s2 conv); carried so that a train_config.json round-trips, and

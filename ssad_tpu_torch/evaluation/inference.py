@@ -16,7 +16,9 @@ stem's maxpool; other sizes run the module forward.  ``score_maps``
 adds a fitted detector's scores per window (models/detector.py), the
 (B, side, side) reshape and the blur ⊗ upsample to the image size;
 ``score_patch_maps`` and ``score_patch_maps_mahalanobis`` are its JAX
-names, scoring against a bank and a fitted Gaussian.  The patch path's
+names, scoring against a bank and a fitted Gaussian.  The patch path
+needs a convolutional trunk: a transformer trunk (models/vit.py) is
+refused with a ValueError that names it.  The patch path's
 spans (utils/profiling.span): ``ssad.patch.windows`` (windows and casts),
 ``ssad.patch.stem``, ``ssad.patch.forward`` (trunk and head),
 ``ssad.patch.knn`` (the detector's score) and ``ssad.patch.maps``
@@ -37,7 +39,7 @@ from ssad_tpu_torch.constants import ModelOutputs
 from ssad_tpu_torch.data import mvtec
 from ssad_tpu_torch.data.synthetic import SynthDraws, SynthSpec, draw, synthesize
 from ssad_tpu_torch.models.detector import make_detector, mahalanobis_distances
-from ssad_tpu_torch.models.peranet import PeraNet, build_model
+from ssad_tpu_torch.models.peranet import PeraNet, build_model, require_cnn
 from ssad_tpu_torch.ops import image as im
 from ssad_tpu_torch.ops import stem_pool
 from ssad_tpu_torch.ops.knn import knn_cosine_scores
@@ -74,6 +76,7 @@ class InferenceEngine:
     def patch_forward(self, flat: torch.Tensor) -> dict:
         """Forward a (N, d, d, 3) patch batch; 32×32 patches take the
         fused stem."""
+        require_cnn(self.model, "patch mode")
         if flat.shape[1] == stem_pool.PATCH and flat.shape[2] == stem_pool.PATCH:
             with span("ssad.patch.stem"):
                 x_stem = stem_pool.stem_pool(flat, *self.stem_affine())

@@ -18,7 +18,7 @@ from typing import Optional
 
 import torch
 
-from ssad_tpu_torch.models.peranet import PeraNet
+from ssad_tpu_torch.models.peranet import PeraNet, require_cnn
 from ssad_tpu_torch.ops.image import resize_bilinear
 
 
@@ -26,7 +26,9 @@ def compute_gradcam(model: PeraNet, x: torch.Tensor, class_idx: Optional[int] = 
                     ) -> torch.Tensor:
     """Saliency maps (B, H, W) in [0, 1] of a normalized (B, H, W, 3)
     batch on the model's device.  ``class_idx``: the target class, or None
-    for each sample's argmax (reference gradcam.py:32-35)."""
+    for each sample's argmax (reference gradcam.py:32-35).  A transformer
+    trunk has no layer-4 activation map and is refused."""
+    require_cnn(model, "Grad-CAM")
     model.eval()
     h, w = x.shape[1], x.shape[2]
     with torch.no_grad():

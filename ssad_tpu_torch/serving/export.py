@@ -37,7 +37,9 @@ normalization, to
   the patch bank, or Mahalanobis → blur ⊗ upsample to the image size).
 
 On the card every kernel of the path is the CUDA one; on the CPU it is
-the plain version.  The header's ``knn_impl`` names the k-NN kernel that
+the plain version.  A transformer trunk (models/vit.py) serves image mode
+only: patch-mode export and a patch-mode scorer refuse it.  The header's
+``knn_impl`` names the k-NN kernel that
 serves the bank: ``cuda`` (≤ 1024 rows, csrc/knn.cu) or ``cuda_tiled``
 (csrc/knn_tiled.cu); it is null for a Mahalanobis artifact, which runs
 no k-NN.
@@ -59,7 +61,7 @@ import torch
 from ssad_tpu_torch.config import DataConfig, EvalConfig, ModelConfig
 from ssad_tpu_torch.evaluation.inference import InferenceEngine
 from ssad_tpu_torch.models.detector import make_detector
-from ssad_tpu_torch.models.peranet import build_model
+from ssad_tpu_torch.models.peranet import build_model, require_cnn
 from ssad_tpu_torch.ops import image as im
 from ssad_tpu_torch.ops.knn import PALLAS_MAX_BANK_ROWS
 from ssad_tpu_torch.utils.device import resolve_device
@@ -189,6 +191,7 @@ def export_checkpoint(
     engine = data = None
     if mode == "patch":
         model = build_model(cfg)
+        require_cnn(model, "patch mode")
         model.load_state_dict(state_dict, strict=True)
         engine = InferenceEngine(model, dev)
     if normality is None:
@@ -327,7 +330,10 @@ class ServedScorer:
     def __init__(self, meta: dict, state_dict: dict, device=None, scales=None, **arrays):
         self.meta = meta
         self.device = resolve_device(device)
-        model = build_model(ModelConfig(**_tuples(meta["model"]))).to(self.device)
+        with torch.device(self.device):  # the initial values are overwritten: draw them there
+            model = build_model(ModelConfig(**_tuples(meta["model"])))
+        if meta["mode"] == "patch":
+            require_cnn(model, "patch mode")
         state_dict = {k: v.to(self.device) for k, v in state_dict.items()}
         if scales:
             from ssad_tpu_torch.serving.quant import dequantize_state_dict

@@ -11,8 +11,11 @@ The JAX package's output channel is the LAST axis (HWIO kernels, IO dense
 kernels); a PyTorch state dict keeps it FIRST (OIHW, out × in), so the
 maximum runs over every axis but the first.  The values are the same
 after the layout transpose, and so are q and scale, bit for bit.  1-D
-tensors (BatchNorm scale, bias and running statistics, biases) and
-integer ones stay as they are.  The artifact stores q and the scales;
+tensors (BatchNorm scale, bias and running statistics, biases, LayerNorm
+and LayerScale vectors), integer ones and a transformer trunk's token
+tables (``TOKEN_TABLES``: the CLS, register and mask tokens and the
+position table, whose leading axis is no output channel) stay as they
+are.  The artifact stores q and the scales;
 ``ServedScorer`` dequantizes once at load, to bf16 values on the device
 (the JAX package dequantizes inside its traced program, to bf16 too).
 """
@@ -25,10 +28,14 @@ import torch
 
 #: tensors with fewer axes than this stay unquantized (BN parameters, biases)
 MIN_QUANT_NDIM = 2
+#: the last name part of a transformer trunk's tables (models/vit.py), kept
+#: as they are
+TOKEN_TABLES = ("cls_token", "register_tokens", "mask_token", "pos_embed")
 
 
-def is_quantizable(t: torch.Tensor) -> bool:
-    return t.ndim >= MIN_QUANT_NDIM and t.is_floating_point()
+def is_quantizable(t: torch.Tensor, name: str = "") -> bool:
+    return (t.ndim >= MIN_QUANT_NDIM and t.is_floating_point()
+            and name.rsplit(".", 1)[-1] not in TOKEN_TABLES)
 
 
 def quantize(w: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -50,7 +57,7 @@ def quantize_state_dict(state_dict: Dict[str, torch.Tensor]
     scales by name)."""
     out, scales = {}, {}
     for name, t in state_dict.items():
-        if is_quantizable(t):
+        if is_quantizable(t, name):
             out[name], scales[name] = quantize(t)
         else:
             out[name] = t

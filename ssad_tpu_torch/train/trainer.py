@@ -55,7 +55,7 @@ import torch.nn.functional as F
 from ssad_tpu_torch.config import TrainConfig
 from ssad_tpu_torch.data import mvtec
 from ssad_tpu_torch.data.synthetic import SynthSpec, draw, synthesize
-from ssad_tpu_torch.models.peranet import PeraNet, build_model, init_model
+from ssad_tpu_torch.models.peranet import PeraNet, build_model, init_model, require_cnn
 from ssad_tpu_torch.models.resnet import sync_batch_stats
 from ssad_tpu_torch.ops.image import normalize_imagenet
 from ssad_tpu_torch.train.memory_bank import MemoryBank, init_bank, insert
@@ -231,6 +231,7 @@ class Trainer:
         self.data_group = data_group
         self.device = resolve_device(device)
         self.model = build_model(cfg.model)
+        require_cnn(self.model, "training")
         if data_group is not None:
             sync_batch_stats(self.model, data_group.group or dist.group.WORLD)
         self.spec = SynthSpec(subject=cfg.data.subject, imsize=cfg.data.imsize,
