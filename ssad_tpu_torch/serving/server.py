@@ -4,10 +4,12 @@ Counterpart of ssad_tpu/serving/server.py:52-812.  The scorer runs one
 fixed batch shape (serving/export.py), so a launch is paid per batch:
 ``BatchingScorer`` is a dynamic batcher — callers submit single images
 from any thread and wait on a future; a collector thread drains the
-queue until the batch fills or ``max_delay_ms`` expires, pads, runs the
-scorer once and fans the rows back out.  Over a list of scorers (one per
-device replica, ``serve --devices``; serving/replicas.py) it runs one
-runner thread per scorer, so several batches are in flight at once.
+queue until the batch fills or ``max_delay_ms`` expires, stages it in a
+reused, zero-padded buffer (page-locked where there is a CUDA device),
+runs the scorer once and fans the rows back out.  Over a list of
+scorers (one per device replica, ``serve --devices``;
+serving/replicas.py) it runs one runner thread per scorer, so several
+batches are in flight at once.
 
 ``AnomalyHTTPServer`` puts a dependency-free HTTP API in front:
 
@@ -92,11 +94,29 @@ class BatchingScorer:
     is the sum of what it returned, and a warm-up that raises closes
     the batcher and raises from the constructor.
 
+    Each runner (the collector, with one callable) assembles its batches
+    in a staging buffer of its own, ``(batch,) + row shape``, reused from
+    batch to batch: the rows are copied into its first rows and the rows
+    after them are zero, as a padded ``np.stack`` would give, and the
+    callable receives the whole buffer.  A callable that describes its
+    input as an artifact does (``meta["imsize"]``: ``ServedScorer``,
+    ``DeviceReplica``) gets the buffer at warm-up; any other on its
+    first batch, and a batch of another row shape gets a new one.  The
+    buffer is page-locked where the callable's ``device`` is a CUDA
+    device (or, for a callable that names no device, where the process
+    sees one), so a scorer's ``torch.from_numpy(x).to(device)`` is a
+    direct DMA, not a copy staged through CUDA's own bounce buffer; a
+    CPU scorer gets plain numpy memory and creates no CUDA context.  A
+    callable must be done with its input when it returns
+    (``ServedScorer``'s upload is synchronous); results that share
+    memory with the buffer are copied before they are handed out.
+
     Under ``torch.profiler`` (utils/profiling.span) the collector's loop
     is tiled by ``ssad.batcher.collect`` (waiting for a batch's first
     request until the batch closes), and each batch's thread by
-    ``ssad.batcher.stack``, ``ssad.batcher.run`` (the scoring callable)
-    and ``ssad.batcher.fanout`` (rows back to the requests, counters).
+    ``ssad.batcher.stack`` (the copy into the staging buffer),
+    ``ssad.batcher.run`` (the scoring callable) and
+    ``ssad.batcher.fanout`` (rows back to the requests, counters).
     """
 
     def __init__(
@@ -125,6 +145,8 @@ class BatchingScorer:
         self._queue_wait_s = 0.0
         self._latency_s = 0.0
         self._runner_batches = [0] * len(fns)
+        #: one per runner, touched only by that runner's thread
+        self._staging = [_Staging(self.batch, _pins(fn)) for fn in fns]
         self._closed = False
         #: how long close() waits for the collector and each runner
         self._join_s = 10.0
@@ -153,6 +175,9 @@ class BatchingScorer:
         try:
             if self._warmup is not None:
                 result[0] = float(self._warmup(self._fns[idx]))
+            imsize = (getattr(self._fns[idx], "meta", None) or {}).get("imsize")
+            if imsize is not None:
+                self._staging[idx].reserve(tuple(imsize) + (3,))
         except Exception as e:  # re-raised by the constructor
             result[1] = e
         finally:
@@ -308,13 +333,14 @@ class BatchingScorer:
         n = len(reqs)
         try:
             with span("ssad.batcher.stack"):
-                x = np.stack([r.image for r in reqs])
-                if n < self.batch:
-                    x = np.pad(x, ((0, self.batch - n),) + ((0, 0),) * 3)
+                x = self._staging[idx].stage([r.image for r in reqs])
             with span("ssad.batcher.run"):
                 start = time.perf_counter()
                 results = tuple(np.asarray(r) for r in self._fns[idx](x))
             with span("ssad.batcher.fanout"):
+                # the next batch overwrites the buffer: an answer must
+                # not be a view of it
+                results = tuple(r.copy() if np.may_share_memory(r, x) else r for r in results)
                 now = time.perf_counter()
                 latencies = [now - r.t_submit for r in reqs]
                 with self._lock:
@@ -332,6 +358,61 @@ class BatchingScorer:
             for r in reqs:
                 r.error = e
                 r.event.set()
+
+
+class _Staging:
+    """One runner's staging buffer: ``stage`` copies a batch's rows into
+    its first rows and leaves the rest zero.  ``dirty`` is the high-water
+    mark of rows that may hold an earlier batch's data, so a short batch
+    zeroes only those and a full one nothing."""
+
+    def __init__(self, batch: int, pinned: bool):
+        self.batch = batch
+        self.pinned = pinned
+        self.buf: Optional[np.ndarray] = None
+        self.dirty = 0
+
+    def reserve(self, row_shape: Tuple[int, ...]) -> np.ndarray:
+        """The buffer for rows of ``row_shape``, zeroed and new unless the
+        one held already has it."""
+        if self.buf is None or self.buf.shape[1:] != row_shape:
+            self.buf = _host_buffer((self.batch,) + row_shape, self.pinned)
+            self.dirty = 0
+        return self.buf
+
+    def stage(self, images: Sequence[np.ndarray]) -> np.ndarray:
+        """The batch, zero-padded, in the buffer; rows of differing shapes
+        raise ``np.stack``'s ValueError before any row is written."""
+        buf, n = self.reserve(images[0].shape), len(images)
+        np.stack(images, out=buf[:n])
+        if self.dirty > n:
+            buf[n:self.dirty] = 0
+        self.dirty = n
+        return buf
+
+
+def _pins(fn) -> bool:
+    """Whether ``fn``'s staging buffer is page-locked: where its
+    ``device`` is a CUDA device, or, where it names none, where the
+    process sees one."""
+    import torch
+
+    device = getattr(fn, "device", None)
+    if device is None:
+        return torch.cuda.is_available()
+    return torch.device(device).type == "cuda"
+
+
+def _host_buffer(shape: Tuple[int, ...], pinned: bool) -> np.ndarray:
+    """Zeroed float32 host memory (``submit`` makes every row float32),
+    page-locked where ``pinned`` (the copy to any device then runs at the
+    DMA engine's rate, and under unified addressing every device sees it
+    pinned)."""
+    if not pinned:
+        return np.zeros(shape, np.float32)
+    import torch
+
+    return torch.zeros(shape, dtype=torch.float32, pin_memory=True).numpy()
 
 
 # -- HTTP front end ----------------------------------------------------------
