@@ -17,10 +17,11 @@ the batch.)  It imports nothing of JAX or of the JAX package.  Phases
    stem_pool, bn_act: one nvcc per source, started together) and print ptxas's
    register and spill lines and any note that it serialized wgmmas.
    Then, on the host (``stream:``), the SHA-256 of the first batch of
-   ``utils.jax_random.JaxTrainStream(0, …)`` (the JAX package's random
+   ``_torch_jax_random.JaxTrainStream(0, …)`` (the JAX package's random
    stream rebuilt in numpy: indices and synthesis draws), which must equal
-   ``STREAM_DIGEST`` (tests/test_torch_jax_random.py pins the same
-   constant: this machine's numpy gives the stream JAX gives).
+   ``STREAM_DIGEST`` (tests/_torch_card_fixtures.py, which
+   tests/test_torch_jax_random.py holds JAX's own stream to: this
+   machine's numpy gives the stream JAX gives).
 2. Hold each kernel against its plain PyTorch version on the card (TF32
    off) at its paths' shapes, and time kernel, plain version and a
    library yardstick beside the card's bound; at the main shapes also
@@ -90,8 +91,8 @@ the batch.)  It imports nothing of JAX or of the JAX package.  Phases
    object, a ring, a thin bar, two objects of different and of equal
    size, a blank image, four cable images posterized with seed 0): ms
    per image, and the SHA-256 of the masks' bytes, which must equal
-   ``MASK_DIGEST`` (tests/test_torch_masks.py pins the same constant: the
-   JAX package's OpenCV path gives those bytes on the non-cable images).
+   ``MASK_DIGEST`` (tests/_torch_card_fixtures.py; tests/test_torch_masks.py
+   holds the JAX package's OpenCV path to it on the non-cable images).
    Then drive the CutPaste pretext synthesizer (the trainer's batch maker) at
    DataConfig's batch of 96: a seeded 256² MVTec-layout tree of 12
    train-good PNGs per category (bottle, hazelnut, screw, carpet);
@@ -122,7 +123,7 @@ the batch.)  It imports nothing of JAX or of the JAX package.  Phases
    the filled bank and a given-mask insert; the largest |Δ| of each
    printed), at 64² batch 8 on tests/test_torch_train_cuda.py's disc
    images under the CPU parity limits, and at 256² batch 16 on the tree
-   under fixed wider limits (ssad_tpu_torch/train/step_parity.py says
+   under fixed wider limits (tests/_torch_step_parity.py says
    why); at each, the card step with TF32 on, a planted fault, must break
    the limits.  Then the default dtype, bf16, layer by layer
    (``bf16_step_parity``): the CPU step records every ReLU input and
@@ -321,6 +322,12 @@ from pathlib import Path
 import numpy as np
 
 ROOT = Path(__file__).resolve().parent
+sys.path.insert(0, str(ROOT / "tests"))
+
+from _torch_card_fixtures import (  # noqa: E402  (tests/ on sys.path above)
+    IMSIZE, MASK_CORPUS, MASK_DIGEST, STREAM_DIGEST, SYNTH_IMAGES, SYNTH_TREE, curve_faults,
+    curve_sweep, mask_corpus_image, mask_digest, on_device_pixel_metrics, synthetic_images,
+    torchvision_state_dict, write_eval_split, write_synth_tree)
 
 #: NVIDIA H100 SXM data-sheet peaks (dense, at the 700 W limit)
 HBM_BYTES_PER_S = 3.35e12
@@ -336,19 +343,17 @@ PATCH_F32_MODEL_TOL = 1e-3  # a one-ulp bf16 flip in the stem carries through th
 BN_ACT_SITES_FROM_STEM, BN_ACT_SITES_IMAGE = 16, 17
 BN_ACT_SITES_WIDE_FROM_STEM = 48  # Wide-ResNet-50-2: 16 bottleneck blocks × 3
 N_REQUESTS, N_THREADS = 32, 4
-IMSIZE, BATCH, BANK_ROWS = 256, 8, 1000
+BATCH, BANK_ROWS = 8, 1000
 #: patch mode: 63 train-good images (50 train + 13 val), 841 windows each
 PATCH_IMAGES, NORMALITY_IMAGES, PATCH_REQUESTS = 63, 50, 16
 WINDOWS = 841
-#: synthesis: train-good PNGs per category, timed batches
-SYNTH_IMAGES, SYNTH_TIMED = 12, 20
+#: synthesis: timed batches
+SYNTH_TIMED = 20
 SYNTH_CASES = (("bottle", False), ("hazelnut", False), ("carpet", False), ("bottle", True),
                ("screw", True))
 #: training at DataConfig's batch of 96: 9 train PNGs duplicated to 774 →
 #: 8 steps an epoch
 TRAIN_BATCH, TRAIN_MIN_LEN, TRAIN_MIN_BANK, TRAIN_TIMED, TRAIN_PARITY_BATCH = 96, 768, 16, 10, 16
-#: evaluation: MVTec bottle's test split (good, then its three defect types)
-EVAL_SPLIT = (("good", 20), ("broken_large", 20), ("broken_small", 22), ("contamination", 21))
 #: scorers: the wide patch path (10 normality images → 8,410 windows → 5,887
 #: train rows → a 2,048-row coreset: the tiled kernel); a 512-row coreset in
 #: phase 7's patch evaluate (the resident kernel at 6,728 queries)
@@ -373,11 +378,6 @@ PARITY_IMAGE_AUROC_FLOOR, PARITY_PIXEL_AUROC_FLOOR = 0.80, 0.90
 #: sharded engine's limit against the unsharded one, cable's test split
 MULTI_SUBJECTS, MULTI_MIN_LEN, MULTI_TIMED, MULTI_TOL = ("bottle", "cable"), 192, 5, 1e-5
 MULTI_CABLE_SPLIT = (("good", 10), ("broken_large", 10))
-#: phase 7's curve sweep: the problems (tests/test_metrics_device.py's, from
-#: default_rng(s) for s < CURVE_SEEDS) and that test's rule on the plotted
-#: ROC and PRO curves: every step of x and y ≥ -CURVE_STEP_TOL, y in [0, 1 +
-#: CURVE_Y_TOL], the ROC's trapezoid within CURVE_TRAPZ_TOL of the AUROC
-CURVE_SEEDS, CURVE_STEP_TOL, CURVE_Y_TOL, CURVE_TRAPZ_TOL = 200, 1e-7, 1e-6, 5e-3
 #: phase 13: the correlation the readiness run's checkpoint must keep with
 #: the weight file (the JAX test's); the 15-category tree's size and
 #: train-good images a category (a bank under 100 rows leaves ``evaluate``
@@ -467,15 +467,6 @@ def reference_state_dict(seed: int = 0) -> dict:
     add_bn("latent_space.4", 512)
     add_linear("classifier", 4, 512, bias=True)
     return sd
-
-
-def synthetic_images(rng: np.random.Generator, n: int) -> np.ndarray:
-    """(n, 256, 256, 3) float32 in [0,1]: a flat colour, a vertical
-    gradient and pixel noise, all seeded."""
-    base = rng.uniform(0.25, 0.75, (n, 1, 1, 3))
-    ramp = np.linspace(0.0, 1.0, IMSIZE)[None, :, None, None] * rng.uniform(0, 0.2, (n, 1, 1, 1))
-    noise = rng.uniform(0.0, 0.1, (n, IMSIZE, IMSIZE, 3))
-    return np.clip(base + ramp + noise, 0.0, 1.0).astype(np.float32)
 
 
 def cuda_ms(fn, iters: int = 200, warmup: int = 10, budget_s: float = 0.3) -> float:
@@ -584,22 +575,13 @@ def check_knn_kernel(device):
     return records
 
 
-def stem_bound(n: int):
-    """(bound_ms, bound_by): patches read once, weights and affine read
-    once, pooled maps written once, over the HBM rate, vs the conv's bf16
-    products over the tensor-core rate."""
-    nbytes = 2 * n * 32 * 32 * 3 + 2 * 48 * 64 + 4 * 2 * 64 + 2 * n * 16 * 16 * 64
-    flops = 2 * n * 32 * 32 * 64 * 48
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / BF16_FLOP_PER_S
-    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
-
-
 def check_stem_kernel(device):
     """The fused stem kernel vs its plain version; library yardstick:
     cuDNN conv (bf16, channels_last) → affine → ReLU → max_pool2d."""
     import torch
     import torch.nn.functional as F
 
+    from port_bench.counts import kernels
     from ssad_tpu_torch.ops import stem_pool
 
     gen = torch.Generator(device=device).manual_seed(1)
@@ -636,7 +618,8 @@ def check_stem_kernel(device):
             "plain_ms": cuda_ms(lambda: stem_pool.stem_pool_plain(x, k4, scale, bias)),
             "library_ms": cuda_ms(lambda: library(x)),
         }
-        rec["bound_ms"], rec["bound_by"] = stem_bound(n)
+        bound_s, bound_by = kernels.bound_s(*kernels.stem(n))
+        rec["bound_ms"], rec["bound_by"] = bound_s * 1e3, bound_by
         if n == BATCH * WINDOWS:
             rec["device_us"] = device_us(
                 lambda: stem_pool.stem_pool_cuda(x, k4, scale, bias), "stem_pool", 20)
@@ -1196,129 +1179,20 @@ def drive_patch_path(device, work: Path, seed: int = 1):
     return launches, serving
 
 
-#: phase 5's tree: the synthesis cases' subjects, then phase 12's second
-#: fixed-pose object (last, so the others' images do not move)
-SYNTH_TREE = ("bottle", "hazelnut", "screw", "carpet", "cable")
-
-
-#: the object-mask corpus: (name, subject) of each image; ``mask_corpus``
-#: draws each from its own seed (its place here)
-MASK_CORPUS = (
-    ("bottle", "bottle"), ("cable_plain", "bottle"), ("capsule", "capsule"),
-    ("hazelnut", "hazelnut"), ("metal_nut", "metal_nut"), ("pill", "pill"),
-    ("screw", "screw"), ("toothbrush", "toothbrush"), ("transistor", "transistor"),
-    ("zipper", "zipper"), ("disc_noise0", "bottle"), ("disc_noise2", "bottle"),
-    ("disc_noise4", "bottle"), ("disc_noise6", "bottle"), ("disc_noise10", "bottle"),
-    ("disc_smooth_texture", "bottle"), ("at_border", "bottle"), ("ring", "metal_nut"),
-    ("thin_bar", "screw"), ("two_unequal", "bottle"), ("two_equal", "bottle"),
-    ("blank", "bottle"), ("cable0", "cable"), ("cable1", "cable"),
-    ("cross_section0", "cable"), ("cross_section1", "cable"),
-)
-#: SHA-256 of the bytes of ``corpus_masks(256)``, in ``MASK_CORPUS`` order:
-#: the port's masks; the JAX package's OpenCV path gives the same bytes on
-#: every non-cable image (tests/test_torch_masks.py pins this constant)
-MASK_DIGEST = "b0be4d21844a16d9f3c4db3ef9751fad6e43c4aab2e0b8431149ec91df9e8f2e"
-
-
-def mask_corpus_image(name: str, size: int) -> np.ndarray:
-    """One seeded RGB uint8 image of ``MASK_CORPUS`` at size × size."""
-    from ssad_tpu_torch import constants, parity
-
-    rng = np.random.default_rng(1000 + [n for n, _ in MASK_CORPUS].index(name))
-    generated = {"cable_plain": "cable", "cable0": "cable", "cable1": "cable"}
-    if name in generated or name in constants.OBJECTS:
-        return parity._make_image(rng, generated.get(name, name), size)
-    yy, xx = np.mgrid[0:size, 0:size].astype(np.float64)
-
-    def disc(cy, cx, r):
-        return (yy - cy) ** 2 + (xx - cx) ** 2 < r**2
-
-    img = np.full((size, size, 3), 90.0)
-    if name.startswith("disc_noise"):
-        img[disc(size * 0.5 + 3 * size / 256, size * 0.47, size * 0.27)] += 80
-        img += rng.normal(0, float(name[len("disc_noise"):]), img.shape)
-    elif name == "disc_smooth_texture":
-        img += (18 * np.sin(xx * 256 / (13 * size) + rng.uniform(0, 6))
-                + 14 * np.cos(yy * 256 / (19 * size)))[..., None]
-        img[disc(size * 0.52, size * 0.5, size * 0.3)] += 70
-        img += rng.normal(0, 2, img.shape)
-    elif name == "at_border":
-        img[disc(size * 0.45, size * 0.08, size * 0.3)] += 90
-        img += rng.normal(0, 3, img.shape)
-    elif name == "ring":
-        d = np.hypot(yy - size * 0.5, xx - size * 0.52)
-        img[(d < size * 0.32) & (d > size * 0.14)] = (150, 140, 120)
-        img += rng.normal(0, 4, img.shape)
-    elif name == "thin_bar":
-        t = np.deg2rad(rng.uniform(20, 70))
-        u = (xx - size / 2) * np.cos(t) + (yy - size / 2) * np.sin(t)
-        v = (yy - size / 2) * np.cos(t) - (xx - size / 2) * np.sin(t)
-        img[(np.abs(u) < size * 0.32) & (np.abs(v) < max(2.0, size * 0.025))] = 200
-        img += rng.normal(0, 3, img.shape)
-    elif name == "two_unequal":
-        img[disc(size * 0.3, size * 0.3, size * 0.16)] += 80
-        img[disc(size * 0.68, size * 0.66, size * 0.22)] += 80
-        img += rng.normal(0, 3, img.shape)
-    elif name == "two_equal":
-        # one disc pasted twice, the left copy a row lower: the masks' two
-        # components have equal areas, their first rows (even, then odd)
-        # lie in one row of 2×2 blocks, so OpenCV's numbering (by block)
-        # picks the left one where a raster order of pixels picks the right
-        r = int(size * 0.12)
-        py, px = np.mgrid[0:2 * r + 8, 0:2 * r + 8]
-        patch = (((py - r - 4) ** 2 + (px - r - 4) ** 2 < r * r) * 80.0)[..., None]
-        y0, n = {64: 10, 256: 39}[size], 2 * r + 8
-        img[y0:y0 + n, int(size * 0.6):int(size * 0.6) + n] += patch
-        img[y0 + 1:y0 + 1 + n, int(size * 0.1):int(size * 0.1) + n] += patch
-    elif name.startswith("cross_section"):  # a cable's three insulated wires
-        img[:] = (60, 58, 52)
-        c = size * 0.5
-        img[disc(c, c, size * 0.42)] = (175, 170, 160)
-        for k, colour in enumerate([(40, 130, 60), (40, 70, 150), (120, 80, 50)]):
-            a = 2 * np.pi * k / 3 + rng.uniform(-0.2, 0.2)
-            cy, cx = c + size * 0.19 * np.sin(a), c + size * 0.19 * np.cos(a)
-            img[disc(cy, cx, size * 0.14)] = colour
-            img[disc(cy, cx, size * 0.07)] = (190, 150, 90)
-        img += rng.normal(0, 5, img.shape)
-    elif name != "blank":
-        raise KeyError(name)
-    return np.clip(np.rint(img), 0, 255).astype(np.uint8)
-
-
-def corpus_masks(size: int) -> list:
-    """The port's ``subject_mask(image, subject)`` of every ``MASK_CORPUS``
-    image at ``size``."""
-    from ssad_tpu_torch.data.masks import subject_mask
-
-    return [subject_mask(mask_corpus_image(name, size), subject)
-            for name, subject in MASK_CORPUS]
-
-
-#: the SHA-256 of ``JaxTrainStream(0, 32, 8, 96)``'s first batch on the
-#: bottle at 256² (``jax_random.stream_digest``)
-STREAM_DIGEST = "d389c4b95193862d3fccf17fad43b94385f09908697727c5ff9042a94084f6e9"
-
-
 def check_jax_stream() -> dict:
     """Phase 1b: the JAX stream's digest on this host, held to
     ``STREAM_DIGEST``."""
     import numpy
+    import _torch_jax_random as jr
 
-    from ssad_tpu_torch.utils import jax_random
 
     t0 = time.perf_counter()
-    rec = {"digest": jax_random.stream_digest(), "pinned": STREAM_DIGEST,
+    rec = {"digest": jr.stream_digest(), "pinned": STREAM_DIGEST,
            "numpy": numpy.__version__, "ms": (time.perf_counter() - t0) * 1e3}
     print(f"stream: {json.dumps(rec)}", flush=True)
     if rec["digest"] != STREAM_DIGEST:
         fail(f"stream: digest {rec['digest']} != the pinned {STREAM_DIGEST}")
     return rec
-
-
-def mask_digest(masks) -> str:
-    import hashlib
-
-    return hashlib.sha256(b"".join(np.ascontiguousarray(m).tobytes() for m in masks)).hexdigest()
 
 
 def drive_masks() -> dict:
@@ -1346,53 +1220,6 @@ def drive_masks() -> dict:
     return rec
 
 
-def write_synth_tree(root: Path, seed: int = 3, images: int = SYNTH_IMAGES) -> None:
-    """A seeded MVTec-layout tree of ``images`` 256² train-good PNGs per
-    category: a bright disc on a noisy gradient for the objects (moving
-    from image to image for the non-fixed hazelnut and screw; fixed, as
-    bottle's, for cable), seeded noise for the carpet texture."""
-    from PIL import Image
-
-    rng = np.random.default_rng(seed)
-    yy, xx = np.mgrid[0:IMSIZE, 0:IMSIZE]
-    for cat in SYNTH_TREE:
-        good = root / cat / "train" / "good"
-        good.mkdir(parents=True)
-        for i in range(images):
-            if cat == "carpet":
-                img = rng.integers(70, 130, (IMSIZE, IMSIZE, 3)).astype(np.uint8)
-            else:
-                img = (synthetic_images(rng, 1)[0] * 160).astype(np.uint8)
-                dy, dx = ((0, 0) if cat in ("bottle", "cable")
-                          else (8 * (i % 5) - 16, 6 * (i % 7) - 18))
-                disc = (yy - 128 - dy) ** 2 + (xx - 128 - dx) ** 2 < 70**2
-                img[disc] = np.clip(img[disc].astype(int) + 80, 0, 255).astype(np.uint8)
-            Image.fromarray(img).save(good / f"{i:03d}.png")
-
-
-def device_events(prof):
-    """(name, start_us, end_us) of every device-side event in a trace."""
-    import torch
-
-    return [(e.name, e.time_range.start, e.time_range.end) for e in prof.events()
-            if e.device_type == torch.autograd.DeviceType.CUDA]
-
-
-def busy_us(events) -> float:
-    """Length of the union of the events' intervals."""
-    total, cur_start, cur_end = 0.0, None, None
-    for _, s, e in sorted(events, key=lambda t: t[1]):
-        if cur_end is None or s > cur_end:
-            if cur_end is not None:
-                total += cur_end - cur_start
-            cur_start, cur_end = s, e
-        else:
-            cur_end = max(cur_end, e)
-    if cur_end is not None:
-        total += cur_end - cur_start
-    return total
-
-
 def drive_synthesis(device, work: Path) -> dict:
     """Phase 5: the pretext synthesizer at DataConfig's batch, five cases."""
     import contextlib
@@ -1400,6 +1227,7 @@ def drive_synthesis(device, work: Path) -> dict:
     import torch
     from torch.profiler import ProfilerActivity, profile
 
+    from port_bench.core.trace import busy_us, device_events
     from ssad_tpu_torch import cli
     from ssad_tpu_torch.config import DataConfig
     from ssad_tpu_torch.data import mvtec
@@ -1524,11 +1352,10 @@ def drive_synthesis(device, work: Path) -> dict:
 def train_step_parity(device, data, batch: int, limits: dict) -> dict:
     """One f32 fine-tune step on the card vs the CPU port (TF32 off), from
     the same weights and draws, held to the fixed ``limits``
-    (ssad_tpu_torch/train/step_parity.py); then the card step again with
+    (tests/_torch_step_parity.py); then the card step again with
     TF32 on, a planted device-side fault that must break them."""
+    import _torch_step_parity as sp
     import torch
-
-    from ssad_tpu_torch.train import step_parity as sp
 
     h, _ = data.imsize
     cfg = sp.step_config(data.imsize, batch)
@@ -1557,12 +1384,12 @@ def bf16_step_parity(device, data, batch: int, limits) -> dict:
     """One bf16 fine-tune step on the card against the CPU port, layer by
     layer: the CPU step records every ReLU input and convolution output
     and the cotangent at each; the card step runs with each layer
-    given the CPU's input and cotangent (``step_parity.pinned_record``),
+    given the CPU's input and cotangent (``_torch_step_parity.pinned_record``),
     so what differs is each layer's own rounding.  Then the card step with
     a planted fault (``f32_residual_add``: the residual add in f32,
     rounded once after the ReLU), which must break ``limits``."""
-    from ssad_tpu_torch.train import _pinning as pn
-    from ssad_tpu_torch.train import step_parity as sp
+    import _torch_pinning as pn
+    import _torch_step_parity as sp
 
     h, _ = data.imsize
     cfg = sp.step_config(data.imsize, batch, "bfloat16")
@@ -1597,6 +1424,8 @@ def bf16_eval_parity(device, limits) -> dict:
     csrc/knn_tiled.cu (a 2,048-row bank), each held against its plain
     version (KNN_TOL).  Then the planted residual add, which must break
     ``limits``."""
+    import _torch_pinning as pn
+    import _torch_step_parity as sp
     import torch
 
     from ssad_tpu_torch.config import ModelConfig
@@ -1604,8 +1433,6 @@ def bf16_eval_parity(device, limits) -> dict:
     from ssad_tpu_torch.ops import image as im
     from ssad_tpu_torch.ops import knn, stem_pool
     from ssad_tpu_torch.ops.patches import extract_patches
-    from ssad_tpu_torch.train import _pinning as pn
-    from ssad_tpu_torch.train import step_parity as sp
 
     sd = reference_state_dict(0)
     host_model, card_model = build_model(ModelConfig()), build_model(ModelConfig())
@@ -1796,8 +1623,9 @@ def drive_bf16_only(device, work: Path) -> None:
     """``--bf16``: phase 6's bf16 checks alone (the step layer by layer at
     64², batch 8 and 256², batch 16, the forward in both modes), then
     ``bf16_alternatives``."""
+    import _torch_step_parity as sp
+
     from ssad_tpu_torch.data import mvtec
-    from ssad_tpu_torch.train import step_parity as sp
 
     root = work / "synth_mvtec"
     write_synth_tree(root)
@@ -1816,6 +1644,7 @@ def time_train_stage(device, trainer, stage: str) -> dict:
     import torch
     from torch.profiler import ProfilerActivity, profile
 
+    from port_bench.core.trace import busy_us, device_events
     from ssad_tpu_torch.train.trainer import STEP_GROUPS, stage_generator
 
     fill = stage == "fine_tune"
@@ -1878,6 +1707,7 @@ def drive_training(device, work: Path) -> dict:
     """Phase 6: cli train → cli export → served scores, on phase 5's tree."""
     import contextlib
 
+    import _torch_step_parity as sp
     import torch
 
     from ssad_tpu_torch import cli
@@ -1887,7 +1717,6 @@ def drive_training(device, work: Path) -> dict:
     from ssad_tpu_torch.ops import image as im
     from ssad_tpu_torch.ops import knn
     from ssad_tpu_torch.serving.export import ServedScorer
-    from ssad_tpu_torch.train import step_parity as sp
     from ssad_tpu_torch.train.trainer import Trainer, stage_generator
     from ssad_tpu_torch.utils import filesystem as fs
     from ssad_tpu_torch.utils.ref_checkpoint import load_checkpoint
@@ -1982,44 +1811,6 @@ def drive_training(device, work: Path) -> dict:
         print(f"train {stage}: {json.dumps(rec)}", flush=True)
     return record
 
-def write_eval_split(category_dir: Path, seed: int = 5, split=EVAL_SPLIT) -> int:
-    """A seeded MVTec-layout test split beside a category's train-good
-    images, ``split`` giving (type, count) pairs, by default MVTec bottle's
-    counts: test/good (20) and three defect types (broken_large 20,
-    broken_small 22, contamination 21) on bottle-like 256² images, each
-    defect's region in ground_truth/<type>/*_mask.png.  Returns the number
-    of test images."""
-    from PIL import Image
-
-    rng = np.random.default_rng(seed)
-    yy, xx = np.mgrid[0:IMSIZE, 0:IMSIZE]
-    c, u = IMSIZE / 2, IMSIZE / 256  # the centre; lengths are given at 256²
-    n = 0
-    for kind, count in split:
-        test_dir = category_dir / "test" / kind
-        test_dir.mkdir(parents=True)
-        for i in range(count):
-            img = (synthetic_images(rng, 1)[0] * 160).astype(np.uint8)
-            disc = (yy - c) ** 2 + (xx - c) ** 2 < (70 * u) ** 2
-            img[disc] = np.clip(img[disc].astype(int) + 80, 0, 255).astype(np.uint8)
-            mask = np.zeros((IMSIZE, IMSIZE), bool)
-            if kind != "good":
-                blobs = {"broken_large": (1, 22, 40), "broken_small": (1, 6, 12),
-                         "contamination": (4, 3, 8)}[kind]
-                for _ in range(rng.integers(1, blobs[0] + 1)):
-                    t = rng.uniform(0, 2 * np.pi)
-                    cy, cx = c + 60 * u * np.sin(t), c + 60 * u * np.cos(t)
-                    ry, rx = rng.uniform(blobs[1] * u, blobs[2] * u, 2)
-                    mask |= ((yy - cy) / ry) ** 2 + ((xx - cx) / rx) ** 2 < 1
-                color = (20, 20, 20) if kind.startswith("broken") else (120, 70, 20)
-                img[mask] = color
-                gt_dir = category_dir / "ground_truth" / kind
-                gt_dir.mkdir(parents=True, exist_ok=True)
-                Image.fromarray((mask * 255).astype(np.uint8)).save(gt_dir / f"{i:03d}_mask.png")
-            Image.fromarray(img).save(test_dir / f"{i:03d}.png")
-            n += 1
-    return n
-
 
 def _zero_launches() -> None:
     from ssad_tpu_torch.ops import bn_act, knn, stem_pool
@@ -2078,6 +1869,7 @@ def _metrics_against_oracles(maps, gts, what: str) -> dict:
     profiled call); fails beyond 2e-4 (AUROC, IoU) or 3e-4 (AUPRO)."""
     import torch
 
+    from port_bench.core.trace import busy_us, device_events
     from ssad_tpu_torch.config import EvalConfig
     from ssad_tpu_torch.evaluation import metrics_device as MD
     from ssad_tpu_torch.evaluation.evaluator import _pixel_scores
@@ -2120,82 +1912,6 @@ def _metrics_against_oracles(maps, gts, what: str) -> dict:
             "program_device_ops": len(events), "program_top_us": dict(top),
             "host_oracles_ms": host_ms, "device": device, "oracle": oracle,
             "max_abs_delta": max(deltas.values()), "curves": curves}
-
-
-def curve_problem(seed: int, n: int = 6, h: int = 64, w: int = 64) -> tuple:
-    """(maps, masks) of tests/test_metrics_device.py's problem drawn from
-    ``default_rng(seed)`` (its ``_blob_gts`` then ``_correlated_maps``),
-    rebuilt in numpy: blob masks on 60 % of the images, scores 0.8 on a
-    blob plus N(0.3, 0.25)."""
-    rng = np.random.default_rng(seed)
-    gts = np.zeros((n, h, w), np.uint8)
-    for i in range(n):
-        if rng.random() > 0.6:
-            continue
-        for _ in range(rng.integers(1, 4)):
-            cy, cx = rng.integers(4, h - 4), rng.integers(4, w - 4)
-            r = int(rng.integers(2, 6))
-            yy, xx = np.ogrid[:h, :w]
-            gts[i][(yy - cy) ** 2 + (xx - cx) ** 2 <= r * r] = 1
-    if not gts.any():
-        gts[0, 2:6, 2:6] = 1
-    maps = gts.astype(np.float32) * 0.8 + rng.normal(0.3, 0.25, gts.shape).astype(np.float32)
-    return maps, gts
-
-
-def curve_faults(pm) -> dict:
-    """tests/test_metrics_device.py's rule on a PixelMetrics' ROC and PRO
-    curves (either package's) → {"dip": the largest fall of x or y between
-    two points, 0 if none; "y_beyond": how far y leaves [0, 1]; "trapz_gap":
-    |the ROC's trapezoid - the AUROC|, "ends": the x ends are 0 and 1,
-    "monotone": ends, dip and y_beyond within the CURVE_* limits, "ok": the
-    trapezoid too}.  The trapezoid bound is the test's, for its continuous
-    scores: on maps with long runs of tied scores the plotted curve's
-    quantile points skip the runs' ends, so it holds only "monotone"."""
-    dip = y_beyond = 0.0
-    ends = True
-    for x, y in (c for c in (pm.roc, pm.pro) if c is not None):
-        x, y = np.asarray(x, np.float64), np.asarray(y, np.float64)
-        ends = ends and x[0] == 0.0 and x[-1] == 1.0
-        dip = max(dip, float(-min(np.diff(x).min(), np.diff(y).min(), 0.0)))
-        y_beyond = max(y_beyond, float(max(-y.min(), y.max() - 1.0, 0.0)))
-    trapz = float(np.sum(np.diff(pm.roc[0]) * (pm.roc[1][1:] + pm.roc[1][:-1]) / 2))
-    gap = abs(trapz - pm.auroc)
-    monotone = bool(ends and dip <= CURVE_STEP_TOL and y_beyond <= CURVE_Y_TOL)
-    return {"dip": dip, "y_beyond": y_beyond, "trapz_gap": gap, "ends": bool(ends),
-            "monotone": monotone, "ok": monotone and gap <= CURVE_TRAPZ_TOL}
-
-
-def curve_sweep(pixel_metrics, seeds=range(CURVE_SEEDS)) -> dict:
-    """``pixel_metrics(maps, masks)`` (either package's, the maps wherever
-    the caller puts them) over ``seeds``' curve problems → {"problems",
-    "dipped": seeds whose curves fall, "largest_dip", "failed": seeds
-    breaking any part of the rule, the largest y_beyond and trapz_gap,
-    "aupro": {seed: AUPRO}}."""
-    out = {"problems": 0, "dipped": [], "largest_dip": 0.0, "failed": [],
-           "largest_y_beyond": 0.0, "largest_trapz_gap": 0.0, "aupro": {}}
-    for s in seeds:
-        pm = pixel_metrics(*curve_problem(s))
-        f = curve_faults(pm)
-        out["problems"] += 1
-        if f["dip"] > 0:
-            out["dipped"].append(s)
-        if not f["ok"]:
-            out["failed"].append(s)
-        out["largest_dip"] = max(out["largest_dip"], f["dip"])
-        out["largest_y_beyond"] = max(out["largest_y_beyond"], f["y_beyond"])
-        out["largest_trapz_gap"] = max(out["largest_trapz_gap"], f["trapz_gap"])
-        out["aupro"][s] = pm.aupro
-    return out
-
-
-def on_device_pixel_metrics(device):
-    """The port's ``pixel_metrics`` with the maps moved to ``device``."""
-    import torch
-
-    from ssad_tpu_torch.evaluation import metrics_device as MD
-
-    return lambda maps, gts: MD.pixel_metrics(torch.from_numpy(maps).to(device), gts)
 
 
 def _plain_knn(queries, bank, k: int):
@@ -2500,6 +2216,8 @@ def served_batch_profile(scorer, x) -> dict:
     by group (stem kernel, tiled k-NN kernel, copies, the model and maps)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
+
+    from port_bench.core.trace import busy_us, device_events
 
     scorer.score_tensor(x)
     torch.cuda.synchronize()
@@ -3511,7 +3229,7 @@ def cudnn_deterministic():
 
 
 def _step_rec(trainer, state, metrics) -> dict:
-    """A step's record in train/step_parity.py's form (the bank twice: no
+    """A step's record in tests/_torch_step_parity.py's form (the bank twice: no
     given-mask insert here)."""
     def host(t):
         return t.detach().cpu().double()
@@ -3525,8 +3243,8 @@ def _step_rec(trainer, state, metrics) -> dict:
 
 
 def _held(name: str, got: dict, want: dict) -> dict:
-    """step_parity's deltas of two step records, held to TREE_256_LIMITS."""
-    from ssad_tpu_torch.train import step_parity as sp
+    """_torch_step_parity's deltas of two step records, held to TREE_256_LIMITS."""
+    import _torch_step_parity as sp
 
     d = sp.step_deltas(got, want)
     d["bit_equal"] = all(v == 0.0 for v in d.values())
@@ -3837,35 +3555,6 @@ def drive_multi_device(device, work: Path) -> dict:
 
 
 # ---- phase 13: the two composed runs -----------------------------------------
-
-
-def torchvision_state_dict(seed: int = 0, mean_std: float = 1.0) -> dict:
-    """Seeded random weights with torchvision resnet18's keys and shapes
-    (``fc.*`` zeros): convolutions N(0, fan_in^-1/2), BatchNorm scales and
-    running variances U(0.5, 1.5), running means N(0, ``mean_std``) (at 1,
-    far from a fresh module's zeros, as an ImageNet file's are), biases N(0,
-    0.1)."""
-    import torch
-
-    from ssad_tpu_torch.config import ModelConfig
-    from ssad_tpu_torch.models.peranet import build_model
-
-    rng = np.random.default_rng(seed)
-    sd = {}
-    for k, v in build_model(ModelConfig()).feature_extractor.state_dict().items():
-        if k.endswith("num_batches_tracked"):
-            sd[k] = torch.tensor(0)
-        elif k.endswith("running_var") or k.endswith(".weight") and v.ndim == 1:
-            sd[k] = torch.from_numpy(rng.uniform(0.5, 1.5, v.shape).astype(np.float32))
-        elif v.ndim == 4:
-            sd[k] = torch.from_numpy(rng.normal(0, v[0].numel() ** -0.5, v.shape)
-                                     .astype(np.float32))
-        else:
-            std = mean_std if k.endswith("running_mean") else 0.1
-            sd[k] = torch.from_numpy(rng.normal(0, std, v.shape).astype(np.float32))
-    sd["fc.weight"] = torch.zeros(1000, 512)
-    sd["fc.bias"] = torch.zeros(1000)
-    return sd
 
 
 def _corr(a, b) -> float:

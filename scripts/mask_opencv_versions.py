@@ -8,8 +8,8 @@ Run from the root of a checkout on any machine with OpenCV:
 
 Loads ``ssad_tpu/data/masks.py`` from its file (numpy and cv2 only; the
 rest of the JAX package, and JAX, need not be installed) and runs its
-``object_mask`` and the port's over chip_smoke.py's ``MASK_CORPUS`` at
-64² and 256² (the non-cable images).  Prints one JSON line: OpenCV's
+``object_mask`` and the port's over ``MASK_CORPUS``
+(tests/_torch_card_fixtures.py) at 64² and 256² (the non-cable images).  Prints one JSON line: OpenCV's
 version, the images whose masks differ, and the digest of the 256²
 corpus with the reference's masks in place of the port's on the
 non-cable images, beside ``MASK_DIGEST``.
@@ -26,8 +26,9 @@ import numpy as np
 
 ROOT = Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(ROOT))
+sys.path.insert(0, str(ROOT / "tests"))
 
-import chip_smoke  # noqa: E402  (this checkout's root on sys.path first)
+import _torch_card_fixtures as fx  # noqa: E402  (this checkout's tests/ on sys.path first)
 
 
 def main() -> int:
@@ -42,22 +43,22 @@ def main() -> int:
     assert reference._HAS_CV2
     differ, compared = [], 0
     for size in (64, 256):
-        for name, subject in chip_smoke.MASK_CORPUS:
+        for name, subject in fx.MASK_CORPUS:
             if subject == "cable":
                 continue
-            img = chip_smoke.mask_corpus_image(name, size)
+            img = fx.mask_corpus_image(name, size)
             compared += 1
             if not np.array_equal(masks.object_mask(img), reference.object_mask(img)):
                 differ.append(f"{name}@{size}")
-    ours = chip_smoke.corpus_masks(256)
+    ours = fx.corpus_masks(256)
     mixed = [m if subject == "cable"
-             else reference.object_mask(chip_smoke.mask_corpus_image(name, 256))
-             for m, (name, subject) in zip(ours, chip_smoke.MASK_CORPUS)]
-    digest = chip_smoke.mask_digest(mixed)
+             else reference.object_mask(fx.mask_corpus_image(name, 256))
+             for m, (name, subject) in zip(ours, fx.MASK_CORPUS)]
+    digest = fx.mask_digest(mixed)
     print(json.dumps({"opencv": cv2.__version__, "compared": compared, "differ": differ,
-                      "reference_digest": digest, "pinned": chip_smoke.MASK_DIGEST,
-                      "equal": digest == chip_smoke.MASK_DIGEST and not differ}), flush=True)
-    return 0 if digest == chip_smoke.MASK_DIGEST and not differ else 1
+                      "reference_digest": digest, "pinned": fx.MASK_DIGEST,
+                      "equal": digest == fx.MASK_DIGEST and not differ}), flush=True)
+    return 0 if digest == fx.MASK_DIGEST and not differ else 1
 
 
 if __name__ == "__main__":

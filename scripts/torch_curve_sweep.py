@@ -6,9 +6,9 @@
 
 Each problem is tests/test_metrics_device.py's (6 × 64 × 64 blob masks and
 correlated scores, ``default_rng(s)`` for s < ``--seeds``, rebuilt by
-``chip_smoke.curve_problem``), and the port's ``pixel_metrics``, its maps
+``tests/_torch_card_fixtures.py``'s ``curve_problem``), and the port's ``pixel_metrics``, its maps
 on ``--device``, is held to that test's rule on its plotted curves
-(``chip_smoke.curve_faults``: every step of x and y ≥ -1e-7 on the ROC and
+(``curve_faults``: every step of x and y ≥ -1e-7 on the ROC and
 the PRO curve, y in [0, 1 + 1e-6], the ROC's trapezoid within 5e-3 of the
 AUROC).  Prints one JSON line: the problems, the seeds whose curves fall at
 all (``dipped``), the largest fall, the seeds that break the rule
@@ -26,22 +26,23 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(ROOT))
+sys.path.insert(0, str(ROOT / "tests"))
 
+import _torch_card_fixtures as fx  # noqa: E402
 import chip_smoke  # noqa: E402  (this checkout's root on sys.path first)
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--device", default="cpu", choices=["cpu", "cuda"])
-    ap.add_argument("--seeds", type=int, default=chip_smoke.CURVE_SEEDS)
+    ap.add_argument("--seeds", type=int, default=fx.CURVE_SEEDS)
     args = ap.parse_args()
     import torch
 
     from ssad_tpu_torch.utils.device import resolve_device
 
     device = resolve_device(args.device)
-    port = chip_smoke.curve_sweep(chip_smoke.on_device_pixel_metrics(device),
-                                  range(args.seeds))
+    port = fx.curve_sweep(fx.on_device_pixel_metrics(device), range(args.seeds))
     port.pop("aupro")
     port.update(package="ssad_tpu_torch", device=str(device), torch=torch.__version__)
     if device.type == "cuda":

@@ -15,9 +15,10 @@ then ``--repeats`` timed exports per subject.
 Prints one JSON line per subject (the seconds of each timed export and
 their median) and one line with the warm-up and the card's name and
 power limit.  It uses only ``chip_smoke.reference_state_dict``,
-``chip_smoke.synthetic_images`` and the ``export`` command, so the same
-file copied into an older checkout times that checkout's export: run it
-in a parent and a change within one call to compare them.
+``tests/_torch_card_fixtures.py``'s ``synthetic_images`` and the
+``export`` command, so the same file copied into another checkout that
+has them times that checkout's export: run it in a parent and a change
+within one call to compare them.
 """
 
 from __future__ import annotations
@@ -35,8 +36,10 @@ import numpy as np
 
 ROOT = Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(ROOT))
+sys.path.insert(0, str(ROOT / "tests"))
 
 import chip_smoke  # noqa: E402  (this checkout's root on sys.path first)
+from _torch_card_fixtures import synthetic_images  # noqa: E402
 
 IMAGES, NORMALITY_IMAGES = 63, 50
 
@@ -64,7 +67,7 @@ def main() -> int:
         for cat in [*args.subjects, "carpet"]:
             good = work / "mvtec" / cat / "train" / "good"
             good.mkdir(parents=True)
-            for i, img in enumerate(chip_smoke.synthetic_images(rng, IMAGES)):
+            for i, img in enumerate(synthetic_images(rng, IMAGES)):
                 Image.fromarray((img * 255).astype(np.uint8)).save(good / f"{i:03d}.png")
         sd = chip_smoke.reference_state_dict(0)
         for subject in args.subjects:

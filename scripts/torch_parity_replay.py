@@ -16,7 +16,7 @@ batch 96, ResNet-18, bf16, 5 + 15 epochs) under PyTorch's default TF32
 flags, once per seed, through the port's own seams (``seams``):
 
 * a JAX seed trains and evaluates on the JAX package's random stream for
-  that seed (``ssad_tpu_torch.utils.jax_random``, numpy, no JAX): each
+  that seed (``tests/_torch_jax_random.py``, numpy, no JAX): each
   ``Trainer`` loads JAX's ``init_model`` weights after ``init_state`` and
   its ``upload_draws`` returns the next batch of ``JaxTrainStream(seed,
   …)`` (indices and synthesis draws of every train and validation step, in
@@ -60,6 +60,7 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(ROOT))
 sys.path.insert(0, str(ROOT / "scripts"))
+sys.path.insert(0, str(ROOT / "tests"))
 
 import chip_smoke  # noqa: E402
 import torch  # noqa: E402
@@ -142,9 +143,10 @@ def seams(jax_seed, n_artificial: int, record: dict) -> list:
     ``JaxTrainStream(seed, …)`` without touching its generator; the
     evaluation synthesizes JAX's artificial batches and fits on JAX's
     permutation (``attach_anomaly_scores(perm=)``)."""
+    import _torch_jax_random as jr
+
     from ssad_tpu_torch.evaluation import inference as inf
     from ssad_tpu_torch.train.trainer import Trainer
-    from ssad_tpu_torch.utils import jax_random as jr
     from ssad_tpu_torch.utils.jax_bridge import state_dict_from_jax
 
     predict_artificial, init_state = inf.predict_artificial, Trainer.init_state

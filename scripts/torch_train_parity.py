@@ -6,7 +6,7 @@ Run from the repository root on a machine with one CUDA card:
     python3 scripts/torch_train_parity.py
 
 One f32 fine-tune step (fill on) on the card against the CPU port from the
-same weights and draws (ssad_tpu_torch/train/step_parity.py), in two
+same weights and draws (tests/_torch_step_parity.py), in two
 cases: 64², batch 8 on the disc images of ``disc_data`` under
 ``CPU_LIMITS``, and 256², batch 16 on chip_smoke.py's seeded bottle tree
 under ``TREE_256_LIMITS``.  In each case the card step runs three ways:
@@ -34,8 +34,10 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(ROOT))
+sys.path.insert(0, str(ROOT / "tests"))
 
 import chip_smoke  # noqa: E402  (repo root on sys.path first)
+from _torch_card_fixtures import write_synth_tree  # noqa: E402
 
 
 @contextlib.contextmanager
@@ -78,10 +80,10 @@ def unbiased_running_var():
 
 
 def main() -> int:
+    import _torch_step_parity as sp
     import torch
 
     from ssad_tpu_torch.data import mvtec
-    from ssad_tpu_torch.train import step_parity as sp
 
     if not torch.cuda.is_available():
         print("torch_train_parity: needs a CUDA card", file=sys.stderr)
@@ -90,7 +92,7 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
     with tempfile.TemporaryDirectory() as tmp:
         root = Path(tmp) / "synth_mvtec"
-        chip_smoke.write_synth_tree(root)
+        write_synth_tree(root)
         tree = mvtec.prepare_pretext_data(root, "bottle", imsize=(256, 256),
                                           val_fraction=0.2, seed=0)
     cases = [("disc_64", sp.disc_data(64), 8, sp.CPU_LIMITS),

@@ -28,9 +28,9 @@ CUDA kernel csrc/bn_act.cu on the card (one read and one write of each
 activation where the chain makes eight passes) and the chain's torch
 operations on the CPU.  The projection shortcut's BatchNorm is computed
 in the pass that adds it.  Training, eval with a graph recorded, and a
-forward under a function mode (train/_pinning's ``Recorder`` and
-``Pinned`` read and pin each ReLU, which the kernel does not expose) run
-the chain module by module.
+forward under a function mode (one that watches each ``F.relu`` call, to
+read or pin its input, which the kernel does not expose) run the chain
+module by module.
 
 BatchNorm in training mode is Flax's ``nn.BatchNorm(momentum=0.9,
 epsilon=1e-5)`` (flax/linen/normalization.py ``_compute_stats``,

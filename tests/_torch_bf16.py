@@ -35,6 +35,8 @@ own summation order):
 
 import sys
 
+import _torch_pinning as pn
+import _torch_step_parity as sp
 import flax.linen as fnn
 import jax
 import jax.numpy as jnp
@@ -48,8 +50,6 @@ from ssad_tpu.models import resnet as jr
 from ssad_tpu.models.peranet import PeraNet as JPeraNet
 from ssad_tpu_torch.models import resnet as pr
 from ssad_tpu_torch.models.peranet import PeraNet
-from ssad_tpu_torch.train import _pinning as pn
-from ssad_tpu_torch.train import step_parity as sp
 from ssad_tpu_torch.utils.jax_bridge import _conv, _t, state_dict_from_jax
 
 torch.set_num_threads(1)

@@ -4,7 +4,7 @@
 
 The sweep of scripts/torch_curve_sweep.py (tests/test_metrics_device.py's
 problem at ``default_rng(s)`` for s < ``--seeds``, held to that test's rule
-by ``chip_smoke.curve_faults``), run by both packages' ``pixel_metrics``
+by ``_torch_card_fixtures.curve_faults``), run by both packages' ``pixel_metrics``
 on the CPU.  Prints one JSON line per package; the port's carries the
 largest |AUPRO - JAX's| over the problems.  It imports both packages, so
 it lives with the tests.
@@ -20,12 +20,12 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(ROOT))
 
-import chip_smoke  # noqa: E402
+import _torch_card_fixtures as fx  # noqa: E402
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--seeds", type=int, default=chip_smoke.CURVE_SEEDS)
+    ap.add_argument("--seeds", type=int, default=fx.CURVE_SEEDS)
     args = ap.parse_args()
     import jax
 
@@ -34,8 +34,8 @@ def main() -> int:
     from ssad_tpu_torch.evaluation import metrics_device as MD
 
     seeds = range(args.seeds)
-    ref = chip_smoke.curve_sweep(JMD.pixel_metrics, seeds)
-    port = chip_smoke.curve_sweep(MD.pixel_metrics, seeds)
+    ref = fx.curve_sweep(JMD.pixel_metrics, seeds)
+    port = fx.curve_sweep(MD.pixel_metrics, seeds)
     ref_aupro, port_aupro = ref.pop("aupro"), port.pop("aupro")
     print(json.dumps({"package": "ssad_tpu", "device": "cpu", **ref}), flush=True)
     port["largest_aupro_gap_to_jax"] = max(abs(port_aupro[s] - ref_aupro[s]) for s in seeds)

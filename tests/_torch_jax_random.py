@@ -5,8 +5,8 @@ the draws the JAX trainer and evaluator make from them.
 
 So the port can train and evaluate on exactly the batches, synthesis draws
 and initial weights a JAX run used, where no JAX is installed.  Nothing
-here imports ``jax``, flax or the JAX package; no runtime path of the port
-imports this module (it serves ``scripts/torch_parity_replay.py``,
+here imports ``jax``, flax or the JAX package, and no module of the port
+imports this one (it serves ``scripts/torch_parity_replay.py``,
 ``chip_smoke.py``'s stream digest and the tests).
 
 A key is a uint32 array whose last axis holds its two words; every

@@ -140,7 +140,7 @@ def deltas(a: dict, b: dict) -> dict:
     """Largest |a − b| per quantity in CPU_LIMITS' terms: gradients
     relative to each tensor's largest |g| in ``b`` (at least GRAD_FLOOR);
     a bank whose cursor or count differs reads inf."""
-    from ssad_tpu_torch.train.step_parity import GRAD_FLOOR
+    from _torch_step_parity import GRAD_FLOOR
 
     def mx(u, v):
         return float((u - v).abs().max()) if u.numel() else 0.0

@@ -12,14 +12,14 @@ noise, and that moves whole terms of the gradient.  The port matches the
 JAX step on the CPU parity tests' seeded batches, and the card matches the
 CPU on the disc images of ``disc_data``, within these limits.
 
-``TREE_256_LIMITS``: the card against the CPU at 256², batch 16, on
-chip_smoke.py's seeded bottle tree.  There one layer-3 ReLU input sits
-within 2e-6 of zero (64² shows the same: one flip moves
-``layer3.1.conv2.weight``'s gradient 5.7 % of its scale), so the two
-devices differ by more than the CPU limits allow.  The limits are fixed
-constants, about twice the card's readings (NVIDIA H100 80GB HBM3, 700 W,
-the same in three runs: loss 2.4e-6, logits 2.3e-5, parameters and
-statistics 5.3e-5, gradients 3.75e-2 of scale, filled bank 5.5e-4,
+``TREE_256_LIMITS``: the card against the CPU at 256², batch 16, on the
+seeded bottle tree (``_torch_card_fixtures.write_synth_tree``).  There
+one layer-3 ReLU input sits within 2e-6 of zero (64² shows the same: one
+flip moves ``layer3.1.conv2.weight``'s gradient 5.7 % of its scale), so
+the two devices differ by more than the CPU limits allow.  The limits are
+fixed constants, about twice the card's readings (NVIDIA H100 80GB HBM3,
+700 W, the same in three runs: loss 2.4e-6, logits 2.3e-5, parameters
+and statistics 5.3e-5, gradients 3.75e-2 of scale, filled bank 5.5e-4,
 given-mask bank 5.7e-4); PERF.md §6 gives the runs and what a planted
 fault (TF32 on) reads against them.
 
@@ -29,7 +29,7 @@ mode): the bf16 card step and forward against the CPU port's, each layer
 given the CPU's input (every ReLU output and convolution output) and the
 step's backward the CPU's cotangent at each of them
 (``reference_record``, ``pinned_record``), read per layer
-(``_pinning.Pinned.layers``, grouped by ``_pinning.layer_deltas``):
+(``_torch_pinning.Pinned.layers``, grouped by ``_torch_pinning.layer_deltas``):
 ``layer_*`` the backbone's ReLU inputs, ``conv_*`` its convolutions'
 outputs and ``cotangent_*`` its cotangents, in bf16 steps (share off,
 largest gap); ``head_*`` the f32 head's, in f32 steps.  About twice the
@@ -61,9 +61,10 @@ import torch
 from ssad_tpu_torch.config import DataConfig, ModelConfig, TrainConfig
 from ssad_tpu_torch.data import masks
 from ssad_tpu_torch.data.mvtec import PretextData
-from ssad_tpu_torch.train._pinning import Decisions, Pinned, Recorder, conv_names, relu_names
 from ssad_tpu_torch.train.memory_bank import init_bank, insert
 from ssad_tpu_torch.train.trainer import Trainer, bank_fill_embeddings, stage_generator
+
+from _torch_pinning import Decisions, Pinned, Recorder, conv_names, relu_names
 
 #: gradients are held relative to each tensor's largest |g|, at least this
 GRAD_FLOOR = 1e-3
@@ -119,7 +120,7 @@ def step_record(cfg: TrainConfig, data: PretextData, device, mode=None, plant=No
     draws, then a given-mask insert of the batch's eval embeddings → host
     f64 copies of what is compared.  ``mode``: a ``Recorder`` or
     ``Pinned`` the step runs under; ``plant``: a context made from the
-    trainer's model (``_pinning.f32_residual_add``) the step runs under."""
+    trainer's model (``_torch_pinning.f32_residual_add``) the step runs under."""
     trainer = Trainer(cfg, data, device)
     state = trainer.init_state("fine_tune", seed=0)
     dd = trainer.device_data("train")

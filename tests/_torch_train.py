@@ -2,7 +2,7 @@
 (tests/test_torch_train_step*.py): the configuration, seeded batches, the
 JAX side (init + the jitted ``Trainer.train_step``) and the port's step,
 run under the JAX forward's ReLU and max-pool decisions (``Pinned``).
-The limits are ssad_tpu_torch/train/step_parity.py's ``CPU_LIMITS``; their
+The limits are _torch_step_parity.py's ``CPU_LIMITS``; their
 measured margins, and the decision limits ``BAND_FACTOR`` and
 ``MAX_FLIPS``, are in the docstring of test_torch_train_step.py."""
 
@@ -15,6 +15,8 @@ import numpy as np
 import optax
 import torch
 import torch.nn.functional as F
+from _torch_pinning import Decisions, Pinned  # noqa: F401
+from _torch_step_parity import CPU_LIMITS, GRAD_FLOOR  # noqa: F401
 
 from ssad_tpu.config import DataConfig as JDataConfig
 from ssad_tpu.config import ModelConfig as JModelConfig
@@ -24,8 +26,6 @@ from ssad_tpu.models.peranet import init_model as jax_init_model
 from ssad_tpu.train import trainer as jtrainer
 from ssad_tpu.train.memory_bank import init_bank as jax_init_bank
 from ssad_tpu_torch.config import DataConfig, ModelConfig, OptimConfig, TrainConfig
-from ssad_tpu_torch.train._pinning import Decisions, Pinned  # noqa: F401
-from ssad_tpu_torch.train.step_parity import CPU_LIMITS, GRAD_FLOOR  # noqa: F401
 from ssad_tpu_torch.train.trainer import Trainer
 from ssad_tpu_torch.utils.jax_bridge import (
     bank_from_numpy, load_optax_momentum, state_dict_from_jax,

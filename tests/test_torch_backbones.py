@@ -22,6 +22,7 @@ import numpy as np
 import pytest
 import torch
 from _torch_port import seeded
+from _torch_step_parity import CPU_LIMITS
 
 from ssad_tpu.config import ModelConfig as JModelConfig
 from ssad_tpu.evaluation.inference import InferenceEngine as JInferenceEngine
@@ -32,7 +33,6 @@ from ssad_tpu_torch.config import ModelConfig
 from ssad_tpu_torch.evaluation.inference import InferenceEngine
 from ssad_tpu_torch.models import peranet, resnet
 from ssad_tpu_torch.ops.image import normalize_imagenet
-from ssad_tpu_torch.train.step_parity import CPU_LIMITS
 from ssad_tpu_torch.utils.jax_bridge import state_dict_from_jax
 from ssad_tpu_torch.utils.torch_weights import convert_resnet_state_dict, load_resnet18_into
 
@@ -119,7 +119,7 @@ def test_patch_windows_through_the_stem_match_jax(monkeypatch, block, width_fact
 def test_bottleneck_train_mode_forward_matches_jax(monkeypatch):
     """One train-mode forward of a wide bottleneck model as initialised
     (BatchNorms as Flax leaves them) on ImageNet-normalised 64² images,
-    batch 8 — the setting of ``step_parity.CPU_LIMITS``: logits from the batch statistics
+    batch 8 — the setting of ``_torch_step_parity.CPU_LIMITS``: logits from the batch statistics
     and every updated running statistic (Flax's biased variance, momentum
     0.9).  Statistics within 1e-5 (rtol and atol; measured 8.6e-6
     absolute, 0.42 of the tolerance).  Logits are held to

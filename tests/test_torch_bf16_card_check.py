@@ -1,16 +1,15 @@
 """The machinery of the bf16 card-vs-CPU check (chip_smoke.py phase 6,
 tests/test_torch_train_cuda.py), run CPU against CPU: a bf16 fine-tune
-step at 64², batch 8 on ``step_parity.disc_data``, recorded
+step at 64², batch 8 on ``_torch_step_parity.disc_data``, recorded
 (``reference_record``: every ReLU input and convolution output, and the
 cotangent at each ReLU output) and run again with each layer given the
 recorded input and cotangent (``pinned_record``).  The same device must
 read every bf16 activation equal and stay inside ``BF16_CARD_LIMITS``;
 the planted ``f32_residual_add`` must break them."""
 
+import _torch_pinning as pn
+import _torch_step_parity as sp
 import torch
-
-from ssad_tpu_torch.train import _pinning as pn
-from ssad_tpu_torch.train import step_parity as sp
 
 torch.set_num_threads(1)
 SIZE, BATCH = 64, 8

@@ -4,7 +4,7 @@ JAX predecessor's output), the same parameters (carried by the bridge's
 layout) and the same seeded cotangent, the JAX module run jitted as the
 package runs it.  The port's module runs under the JAX module's ReLU and
 max-pool decisions with every ReLU output taken from the JAX run
-(``_pinning.Pinned(teacher=True)``, tests/_torch_bf16.py), so each
+(``_torch_pinning.Pinned(teacher=True)``, tests/_torch_bf16.py), so each
 layer starts from JAX's input and what differs is its own rounding.
 
 Modules (batch 8; tests/_torch_bf16.py ``all_readings``): the 7×7/s2 stem
@@ -53,12 +53,13 @@ native bf16 (AVX-512 BF16 / AMX, as tier-1 runs): with
 0.68 of input cotangents off by up to 256 floor steps and gradients
 1.32e-2 of scale, the forward as above.
 
-Planted fault (``_pinning.f32_residual_add``: a basic block's bn2
+Planted fault (``_torch_pinning.f32_residual_add``: a basic block's bn2
 output left in f32, the residual add done in f32 and rounded once after
 the ReLU): its sum reads 0.142 of elements off (seed 0, train; 285×)
 against the limit 5e-4.
 """
 
+import _torch_pinning as pn
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -68,7 +69,6 @@ from _torch_bf16 import (BF, LIMITS, TRAIN_CASES, all_readings, compare,
 
 from ssad_tpu.models import resnet as jr
 from ssad_tpu_torch.models import resnet as pr
-from ssad_tpu_torch.train import _pinning as pn
 
 
 @pytest.fixture(scope="module")

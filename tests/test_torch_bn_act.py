@@ -20,6 +20,7 @@ against ``bn_act_plain`` on the card by tests/test_torch_bn_act_cuda.py.
 
 import zlib
 
+import _torch_pinning as pn
 import numpy as np
 import pytest
 import torch
@@ -32,7 +33,6 @@ from ssad_tpu_torch.models import resnet
 from ssad_tpu_torch.models.peranet import build_model
 from ssad_tpu_torch.ops import bn_act as ba
 from ssad_tpu_torch.ops import stem_pool
-from ssad_tpu_torch.train import _pinning as pn
 
 torch.set_num_threads(1)
 
@@ -228,7 +228,7 @@ def test_train_mode_and_recorded_graphs_keep_the_chain(monkeypatch):
 
 
 def test_a_function_mode_sees_every_relu_of_the_chain(monkeypatch):
-    # train/_pinning's Recorder reads each ReLU's input: under it the trunk
+    # _torch_pinning's Recorder reads each ReLU's input: under it the trunk
     # chains, with the one pass's bits
     model = model_for("resnet18", "bfloat16", seed=8)
     count = Count(monkeypatch)

@@ -11,15 +11,16 @@ Bounds against the f64 oracles: 2e-4 on AUROC, F1 and IoU, 3e-4 on AUPRO
 The plotted ROC and PRO curves are held to tests/test_metrics_device.py's
 rule (no step of x or y below -1e-7, y in [0, 1 + 1e-6], the ROC's
 trapezoid within 5e-3 of the AUROC) over that test's problem drawn from
-``default_rng(s)`` for s < 200 (chip_smoke.py ``curve_problem`` and
-``curve_faults``).
-The category runs use a seeded 256² bottle tree (chip_smoke.py's writers:
+``default_rng(s)`` for s < 200 (tests/_torch_card_fixtures.py
+``curve_problem`` and ``curve_faults``).
+The category runs use a seeded 256² bottle tree (the fixtures' writers:
 6 train-good images, 9 test images) and a seeded bf16 PeraNet: at image
 level csrc/knn.cu fits and scores; in patch mode 3 normality images give
 2,523 windows and a 1,766-row bank, so csrc/stem_pool.cu embeds every
 batch and csrc/knn_tiled.cu fits and scores.
 """
 
+import _torch_card_fixtures as fx
 import numpy as np
 import pytest
 import torch
@@ -58,20 +59,16 @@ def test_device_metrics_on_the_card_match_the_oracles(cuda_device, quantize):
 
 
 def test_curves_on_the_card_are_monotone_over_200_problems(cuda_device):
-    import chip_smoke as cs
-
-    sweep = cs.curve_sweep(cs.on_device_pixel_metrics(cuda_device))
-    assert sweep["problems"] == cs.CURVE_SEEDS
+    sweep = fx.curve_sweep(fx.on_device_pixel_metrics(cuda_device))
+    assert sweep["problems"] == fx.CURVE_SEEDS
     assert not sweep["failed"], sweep
 
 
 @pytest.fixture(scope="module")
 def tree(tmp_path_factory):
-    import chip_smoke as cs
-
     root = tmp_path_factory.mktemp("eval_tree")
-    cs.write_synth_tree(root, images=6)
-    cs.write_eval_split(root / "bottle", split=(("good", 3), ("broken_large", 2),
+    fx.write_synth_tree(root, images=6)
+    fx.write_eval_split(root / "bottle", split=(("good", 3), ("broken_large", 2),
                                                 ("broken_small", 2), ("contamination", 2)))
     return root
 

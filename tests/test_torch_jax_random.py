@@ -1,5 +1,5 @@
 """The JAX package's random stream rebuilt in numpy
-(ssad_tpu_torch/utils/jax_random.py) against ``jax.random``, flax's init
+(tests/_torch_jax_random.py) against ``jax.random``, flax's init
 and the JAX trainer, on the CPU.
 
 The key functions and the integer and uniform draws equal JAX's bit for
@@ -18,11 +18,13 @@ steps drawn before the train steps, must fail.
 import dataclasses
 import functools
 
+import _torch_jax_random as jr
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from _torch_card_fixtures import STREAM_DIGEST
 from _torch_synth import jax_draws
 
 from ssad_tpu.config import DataConfig as JDataConfig
@@ -35,15 +37,11 @@ from ssad_tpu.models.peranet import init_model
 from ssad_tpu.train import trainer as jtrainer
 from ssad_tpu.train.memory_bank import init_bank
 from ssad_tpu_torch.data.synthetic import SynthDraws, SynthSpec
-from ssad_tpu_torch.utils import jax_random as jr
 from ssad_tpu_torch.utils.jax_bridge import state_dict_from_jax
 
 N_KEYS = 4000
 #: truncated_normal and the initial weights: relative to each value
 TN_RTOL = 1e-6
-#: chip_smoke.py pins the same digest (``STREAM_DIGEST``): the card
-#: machine's numpy must give this stream
-STREAM_DIGEST = "d389c4b95193862d3fccf17fad43b94385f09908697727c5ff9042a94084f6e9"
 
 
 @pytest.fixture(scope="module")
@@ -314,6 +312,4 @@ def test_init_params_equal_init_model():
 
 
 def test_stream_digest_is_pinned():
-    import chip_smoke
-
-    assert jr.stream_digest() == STREAM_DIGEST == chip_smoke.STREAM_DIGEST
+    assert jr.stream_digest() == STREAM_DIGEST

@@ -2,7 +2,7 @@
 JAX package's OpenCV path, bit for bit, and the full
 ``prepare_pretext_data``.
 
-* The corpus (chip_smoke.py ``MASK_CORPUS``, at 64² and 256²): the ten
+* The corpus (tests/_torch_card_fixtures.py ``MASK_CORPUS``, at 64² and 256²): the ten
   object subjects of the parity generator, discs on noise σ 0–10 and on
   a smooth texture, an object at the border, a ring, a thin bar, two
   objects of different and of equal size, a blank image.  Each mask
@@ -34,11 +34,11 @@ JAX package's declared dependency); the port's masks do not."""
 import inspect
 import types
 
+import _torch_card_fixtures as fx
 import numpy as np
 import pytest
 from PIL import Image
 
-import chip_smoke as cs
 from ssad_tpu.data import masks as jmasks
 from ssad_tpu.data import mvtec as jmvtec
 from ssad_tpu_torch.data import masks
@@ -46,10 +46,8 @@ from ssad_tpu_torch.data import mvtec
 
 SIZE = 64
 SIZES = (64, 256)
-#: the one constant of chip_smoke.py's ``masks:`` line
-MASK_DIGEST = "b0be4d21844a16d9f3c4db3ef9751fad6e43c4aab2e0b8431149ec91df9e8f2e"
-OBJECTS = [name for name, subject in cs.MASK_CORPUS if subject != "cable"]
-CABLES = [name for name, subject in cs.MASK_CORPUS if subject == "cable"]
+OBJECTS = [name for name, subject in fx.MASK_CORPUS if subject != "cable"]
+CABLES = [name for name, subject in fx.MASK_CORPUS if subject == "cable"]
 CABLE_IOU = 0.99
 
 
@@ -67,7 +65,7 @@ _IMAGES = {}
 
 def corpus_image(name, size):
     if (name, size) not in _IMAGES:
-        _IMAGES[name, size] = cs.mask_corpus_image(name, size)
+        _IMAGES[name, size] = fx.mask_corpus_image(name, size)
     return _IMAGES[name, size]
 
 
@@ -83,7 +81,7 @@ def test_object_mask_is_the_jax_opencv_path(cv2, size, name):
     theirs = jmasks.object_mask(img)
     assert ours.dtype == theirs.dtype == np.uint8 and ours.shape == theirs.shape
     np.testing.assert_array_equal(ours, theirs)
-    subject = dict(cs.MASK_CORPUS)[name]
+    subject = dict(fx.MASK_CORPUS)[name]
     np.testing.assert_array_equal(masks.subject_mask(img, subject),
                                   jmasks.subject_mask(img, subject))
 
@@ -92,7 +90,7 @@ def test_the_corpus_draws_the_jax_parity_generators_images():
     from ssad_tpu import parity as jparity
 
     for name in ("bottle", "hazelnut", "screw", "cable0"):
-        rng = np.random.default_rng(1000 + [n for n, _ in cs.MASK_CORPUS].index(name))
+        rng = np.random.default_rng(1000 + [n for n, _ in fx.MASK_CORPUS].index(name))
         subject = "cable" if name.startswith("cable") else name
         np.testing.assert_array_equal(corpus_image(name, 64), jparity._make_image(rng, subject, 64))
 
@@ -353,13 +351,12 @@ def test_cable_mask_is_seeded_and_within_the_jax_spread(cv2, name):
 
 
 def test_the_corpus_digest_is_chip_smokes(cv2):
-    assert cs.MASK_DIGEST == MASK_DIGEST
-    ours = cs.corpus_masks(256)
-    assert cs.mask_digest(ours) == MASK_DIGEST
+    ours = fx.corpus_masks(256)
+    assert fx.mask_digest(ours) == fx.MASK_DIGEST
     reference = [ours[i] if subject == "cable"
                  else jmasks.object_mask(corpus_image(name, 256))
-                 for i, (name, subject) in enumerate(cs.MASK_CORPUS)]
-    assert cs.mask_digest(reference) == MASK_DIGEST
+                 for i, (name, subject) in enumerate(fx.MASK_CORPUS)]
+    assert fx.mask_digest(reference) == fx.MASK_DIGEST
 
 
 @pytest.fixture(scope="module")

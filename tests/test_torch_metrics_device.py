@@ -12,16 +12,16 @@ quantile positions of the same stable sort).  The curves' endpoints are
 (0, 0) and (1, 1) exactly.
 
 The plotted curves are held to tests/test_metrics_device.py's rule
-(chip_smoke.py ``curve_faults``: no step of x or y below -1e-7, y in [0,
+(tests/_torch_card_fixtures.py ``curve_faults``: no step of x or y below -1e-7, y in [0,
 1 + 1e-6], the ROC's trapezoid within 5e-3 of the AUROC) on that test's
-problem drawn from ``default_rng(s)`` (``chip_smoke.curve_problem``, the
+problem drawn from ``default_rng(s)`` (``_torch_card_fixtures.curve_problem``, the
 same numpy rebuilt without the JAX test module so that the card test and
-chip_smoke can draw it).  On seeds 1, 2, 16, 99 and 196 the JAX program's
+chip_smoke.py can draw it).  On seeds 1, 2, 16, 99 and 196 the JAX program's
 PRO curve falls one f32 step from 1.0 (its f32 cumsum;
 ``scripts/torch_curve_sweep.py``: 86 of 200 problems); the port's does
 not (0 of 200), and its AUPRO stays within JAX_TOL of JAX's there."""
 
-import chip_smoke
+import _torch_card_fixtures as fx
 import numpy as np
 import pytest
 from test_metrics_device import _blob_gts, _correlated_maps, _host_reference
@@ -108,23 +108,23 @@ CURVE_SEEDS = (0, 1, 2, 16, 99, 196)
 def test_the_curve_problem_is_the_jax_tests(seed):
     rng = np.random.default_rng(seed)
     gts = _blob_gts(rng, 6, 64, 64)
-    maps, got_gts = chip_smoke.curve_problem(seed)
+    maps, got_gts = fx.curve_problem(seed)
     assert np.array_equal(got_gts, gts)
     assert np.array_equal(maps, _correlated_maps(rng, gts))
 
 
 @pytest.mark.parametrize("seed", CURVE_SEEDS)
 def test_curves_are_monotone_where_the_jax_program_dips(seed):
-    maps, gts = chip_smoke.curve_problem(seed)
-    got = chip_smoke.curve_faults(MD.pixel_metrics(maps, gts))
+    maps, gts = fx.curve_problem(seed)
+    got = fx.curve_faults(MD.pixel_metrics(maps, gts))
     assert got["ok"] and got["dip"] == 0.0, got
-    want = chip_smoke.curve_faults(JMD.pixel_metrics(maps, gts))
+    want = fx.curve_faults(JMD.pixel_metrics(maps, gts))
     assert want["ok"] == (seed == 0), want  # the seeds were chosen for JAX's dip
 
 
 @pytest.mark.parametrize("seed", CURVE_SEEDS)
 def test_aupro_within_jax_tol_where_the_jax_program_dips(seed):
-    maps, gts = chip_smoke.curve_problem(seed)
+    maps, gts = fx.curve_problem(seed)
     got, want = MD.pixel_metrics(maps, gts), JMD.pixel_metrics(maps, gts)
     assert abs(got.aupro - want.aupro) <= JAX_TOL
     assert abs(got.auroc - want.auroc) <= JAX_TOL
@@ -134,17 +134,17 @@ def test_aupro_within_jax_tol_where_the_jax_program_dips(seed):
 def test_the_curve_rule_catches_a_dip():
     """A planted fall of 2e-7 on the PRO curve (and a y above 1 + 1e-6)
     breaks the rule; the unplanted curves pass it."""
-    maps, gts = chip_smoke.curve_problem(0)
+    maps, gts = fx.curve_problem(0)
     pm = MD.pixel_metrics(maps, gts)
-    assert chip_smoke.curve_faults(pm)["ok"]
+    assert fx.curve_faults(pm)["ok"]
     x, y = pm.pro
     dipped = y.copy()
     dipped[-3] -= 2e-7 + (dipped[-3] - dipped[-4])
-    f = chip_smoke.curve_faults(MD.PixelMetrics(**{**pm.__dict__, "pro": (x, dipped)}))
-    assert not f["ok"] and not f["monotone"] and f["dip"] > chip_smoke.CURVE_STEP_TOL
+    f = fx.curve_faults(MD.PixelMetrics(**{**pm.__dict__, "pro": (x, dipped)}))
+    assert not f["ok"] and not f["monotone"] and f["dip"] > fx.CURVE_STEP_TOL
     high = y.copy()
     high[-1] = 1 + 2e-6
-    assert not chip_smoke.curve_faults(MD.PixelMetrics(**{**pm.__dict__, "pro": (x, high)}))[
+    assert not fx.curve_faults(MD.PixelMetrics(**{**pm.__dict__, "pro": (x, high)}))[
         "monotone"]
 
 
@@ -154,7 +154,7 @@ def test_the_pro_sum_in_f64_is_the_cpus_f32_cumsum():
     so the port's PRO curve there is that of the plain sum, bit for bit."""
     import torch
 
-    maps, gts = chip_smoke.curve_problem(1)
+    maps, gts = fx.curve_problem(1)
     got = MD.pixel_metrics(maps, gts)
     scores, _, pro, _, _, regions = MD.metric_inputs(maps, gts)
     _, order = torch.sort(-scores, stable=True)
@@ -173,9 +173,9 @@ def test_tied_maps_keep_monotone_curves_and_jaxs_trapezoid():
     long tied runs, so the ROC's trapezoid leaves the AUROC by more than
     the JAX test's 5e-3, in both packages alike (chip_smoke phase 7 holds
     such maps to the monotone part only)."""
-    maps, gts = chip_smoke.curve_problem(0)
+    maps, gts = fx.curve_problem(0)
     tied = np.where(maps > 0.9, maps, 0).astype(np.float32)
-    got = chip_smoke.curve_faults(MD.pixel_metrics(tied, gts))
-    want = chip_smoke.curve_faults(JMD.pixel_metrics(tied, gts))
-    assert got["monotone"] and got["trapz_gap"] > chip_smoke.CURVE_TRAPZ_TOL
+    got = fx.curve_faults(MD.pixel_metrics(tied, gts))
+    want = fx.curve_faults(JMD.pixel_metrics(tied, gts))
+    assert got["monotone"] and got["trapz_gap"] > fx.CURVE_TRAPZ_TOL
     assert abs(got["trapz_gap"] - want["trapz_gap"]) <= JAX_TOL

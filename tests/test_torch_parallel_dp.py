@@ -5,7 +5,7 @@ JAX's sharded step is its single-device step (global-view code), so the
 two ranks must reproduce the one-rank step: each keeps its 4 rows of the
 batch, the BatchNorm statistics are the batch's (averaged over the ranks
 by a differentiable all-reduce), the gradients are averaged, and the bank
-fill sees the whole batch.  Held within train/step_parity.py's
+fill sees the whole batch.  Held within _torch_step_parity.py's
 ``CPU_LIMITS`` (loss, logits, gradients relative to scale, parameters
 and BatchNorm statistics, bank) under pinned decisions
 (tests/_torch_parallel.py ``Pin``: rank r takes its rows of the one-rank
@@ -23,9 +23,9 @@ In a world of one the distributed path is the plain trainer, bit for bit
 import pytest
 import torch
 from _torch_parallel import decisions, deltas, dp_step, free_port, run_ranks, seeded_inputs
+from _torch_step_parity import CPU_LIMITS
 
 from ssad_tpu_torch.parallel import distributed as dist_mod
-from ssad_tpu_torch.train.step_parity import CPU_LIMITS
 from ssad_tpu_torch.train.trainer import DataGroup
 
 torch.set_num_threads(1)

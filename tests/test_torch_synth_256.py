@@ -4,7 +4,7 @@ affine, one shared mask), hazelnut (non-fixed: one mask per image) and
 carpet (texture: the cut pool), image level, batch 8.
 
 The JAX engine's keys are read into the port's draws
-(``utils.jax_random.jax_draws_np``, held to the JAX key tree by
+(``_torch_jax_random.jax_draws_np``, held to the JAX key tree by
 tests/test_torch_jax_random.py).  Against JAX's ``batched_synthesizer``
 compiled at declared precision (``xla_allow_excess_precision=False``, as
 tests/_torch_train.py's ``declared_jit``), where every bf16 intermediate
@@ -35,6 +35,7 @@ values of seed 0's two line samples at batch 8 (20 to 50 pixels of a 256²
 image; 3.3e-4 to 7.3e-4 over the first 16) and no other sample.
 """
 
+import _torch_jax_random as jr
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -44,7 +45,6 @@ from _torch_synth import batch_inputs, jax_spec
 
 from ssad_tpu.data import synthetic as js
 from ssad_tpu_torch.data import synthetic as syn
-from ssad_tpu_torch.utils import jax_random as jr
 
 torch.set_num_threads(1)
 SIZE, BATCH, SEED = 256, 8, 0

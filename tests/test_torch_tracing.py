@@ -276,7 +276,7 @@ def test_a_failed_batch_adds_nothing_to_the_counters():
 
 
 def test_trainer_step_spans_are_the_step_groups():
-    from ssad_tpu_torch.train import step_parity as sp
+    import _torch_step_parity as sp
     from ssad_tpu_torch.train.trainer import STEP_GROUPS, Trainer, stage_generator
 
     tr = Trainer(sp.step_config((32, 32), 4), sp.disc_data(32), "cpu")

@@ -19,7 +19,7 @@ and subject from the checkpoint, and the torchvision backbone loader.
 import dataclasses
 import json
 
-import chip_smoke
+import _torch_card_fixtures as fx
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -107,8 +107,9 @@ def test_a_reference_checkpoint_without_train_config_exports_as_before(tmp_path)
 
 def _torchvision_state_dict(seed=0, mean_std=0.1):
     """Seeded random weights with torchvision resnet18's keys and shapes;
-    running means N(0, ``mean_std``) (chip_smoke.py's, which phase 13 loads)."""
-    return chip_smoke.torchvision_state_dict(seed, mean_std)
+    running means N(0, ``mean_std``) (the fixtures' weights, which
+    chip_smoke.py phase 13 loads at ``mean_std`` 1)."""
+    return fx.torchvision_state_dict(seed, mean_std)
 
 
 def test_pretrained_backbone_matches_jax(tmp_path):

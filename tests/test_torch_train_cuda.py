@@ -5,7 +5,7 @@ skips where there is no card.
 This file imports neither JAX nor the JAX package, so it runs on a
 machine without them:
     python -m pytest --noconftest tests/test_torch_train_cuda.py
-The step (ssad_tpu_torch/train/step_parity.py): PeraNet/ResNet-18 at 64²,
+The step (tests/_torch_step_parity.py): PeraNet/ResNet-18 at 64²,
 batch 8, f32 with TF32 off, on the seeded disc images, from the same
 initial weights and the same draws (synthesis is bit-identical on both
 devices), fine-tune with the bank fill on; then an insert of the batch's
@@ -17,21 +17,21 @@ largest |g| (at least 1e-3).
 The bf16 step, layer by layer (``test_card_bf16_step_matches_the_cpu_step_
 layer_by_layer``): the CPU step records every ReLU input and convolution
 output and the cotangent at each
-(``step_parity.reference_record``); the card step runs with each layer
+(``_torch_step_parity.reference_record``); the card step runs with each layer
 given the CPU's input and cotangent (``pinned_record``), so each layer's
 own rounding is read, under ``BF16_CARD_LIMITS`` (measured on the card,
-step_parity.py), with cuDNN's TF32 on (PyTorch's default) and off, which
+_torch_step_parity.py), with cuDNN's TF32 on (PyTorch's default) and off, which
 no bf16 convolution reads; the planted f32 residual add must break them.
 """
 
 import dataclasses
 
+import _torch_pinning as pn
+import _torch_step_parity as sp
 import pytest
 import torch
 from _torch_port import cuda_device  # noqa: F401  (fixture)
 
-from ssad_tpu_torch.train import _pinning as pn
-from ssad_tpu_torch.train import step_parity as sp
 from ssad_tpu_torch.train.trainer import Trainer, stage_generator
 
 SIZE, BATCH = 64, 8

@@ -15,7 +15,7 @@ lr has moved to the next epoch's (steps_per_epoch is 1): its loss, logits,
 layer 4's and the head's gradients, statistics, bank and the update (its
 own docstring).  A fill step with ``bank_fill_rows`` set is held too.
 
-Limits (ssad_tpu_torch/train/step_parity.py ``CPU_LIMITS``), with the
+Limits (tests/_torch_step_parity.py ``CPU_LIMITS``), with the
 largest |Δ| measured on the CPU over both stages and the second step in
 brackets: loss 5e-5 (2.2e-5); logits 3e-4 absolute on logits up to 2.2
 (1.2e-4); parameters and BatchNorm statistics 1e-5 absolute (5.3e-6);

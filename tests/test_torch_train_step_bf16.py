@@ -6,7 +6,7 @@ compiled with XLA's excess precision off (``DECLARED_PRECISION``: every
 value its source declares bf16 is rounded, as op-by-op JAX does).  The
 port's step runs under the JAX train forward's ReLU and max-pool
 decisions, with every ReLU and convolution output taken from the JAX
-forward (``_pinning.Pinned`` with ``teacher``): each layer starts from
+forward (``_torch_pinning.Pinned`` with ``teacher``): each layer starts from
 JAX's bf16 input, the backward runs the port's own ops.  Held: loss,
 logits, every trained parameter's gradient (relative to its largest |g|,
 at least 1e-3), the new parameters and BatchNorm statistics, the filled
@@ -14,7 +14,7 @@ bank (an unpinned eval forward), the decisions the port's own forward
 would take (flips, band), and per layer the port's own ReLU input against
 JAX's (``layer_off``: the share of elements not equal, ``layer_steps``:
 the largest gap in bf16 steps; ``conv_*``: each convolution's output;
-``head_steps``: the f32 head's, in f32 steps; ``_pinning.layer_deltas``).
+``head_steps``: the f32 head's, in f32 steps; ``_torch_pinning.layer_deltas``).
 
 Limits (``LIMITS``): about twice the largest reading over seeds 1–3 in
 three CPU settings (as tier-1 runs, ``ONEDNN_MAX_CPU_ISA=AVX2``,
@@ -42,15 +42,15 @@ f32 accumulation into its BatchNorm on the CPU: port bf16 vs JAX bf16
 bf16 model is nearer f32 there because it keeps those sums in f32; that
 was ROADMAP's unexplained "0.317 against 0.245".
 
-The planted fault (``_pinning.f32_residual_add``) reads 0.290 of a block
+The planted fault (``_torch_pinning.f32_residual_add``) reads 0.290 of a block
 sum's elements off by up to 61 steps (290× the limit).
 """
 
+import _torch_pinning as pn
 import pytest
 from _torch_bf16 import pinned_step
 from _torch_train import beyond, make_jax_side, seeded_batch
 
-from ssad_tpu_torch.train import _pinning as pn
 
 LIMITS = {"loss": 1e-6, "logits": 3e-6, "grad_rel": 7e-2, "params": 7e-4, "bank": 4e-2,
           "flips": 4, "band": 2.0, "layer_off": 1e-3, "layer_steps": 16.0,
