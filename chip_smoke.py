@@ -14,8 +14,9 @@ the batch.)  It imports nothing of JAX or of the JAX package.  Phases
 
 1. Print the card's name and power limit (nvidia-smi), build every CUDA
    kernel of the serving paths from ssad_tpu_torch/csrc (knn, knn_tiled,
-   stem_pool, bn_act: one nvcc per source, started together) and print ptxas's
-   register and spill lines and any note that it serialized wgmmas.
+   stem_pool, bn_act, vit_pointwise: one nvcc per source, started together)
+   and print ptxas's register and spill lines and any note that it
+   serialized wgmmas.
    Then, on the host (``stream:``), the SHA-256 of the first batch of
    ``_torch_jax_random.JaxTrainStream(0, …)`` (the JAX package's random
    stream rebuilt in numpy: indices and synthesis draws), which must equal
@@ -58,7 +59,17 @@ the batch.)  It imports nothing of JAX or of the JAX package.  Phases
      r18's 6,728 × 64 × 16 × 16 with the identity; bit-equal to its plain
      version, ms beside the bytes bound and the plain chain's ms.  Phases
      3 and 4 count its launches (17 a forward on the image path, 16 on
-     the patch path).
+     the patch path);
+   * the transformer trunk's pointwise passes (csrc/vit_pointwise.cu: one
+     warp a row for ``residual_ln``, x' = x + γ⊙y and LayerNorm(x') with
+     the row in registers; 16-byte vectors for ``silu_mul``) at ViT-g's
+     served shape, 32 × 1,029 tokens of width 1,536 (SwiGLU hidden
+     4,096): each of residual_ln's three forms and silu_mul bit-equal to
+     its plain version in bf16 and f32; in bf16 ms, device µs and the
+     plain version's ms beside the bytes bound.  Then one bf16 forward of
+     the ViT-g/14 trunk on seeded weights, its launch counts zeroed just
+     before: 120 residual_ln and 40 silu_mul launches, each call bit-equal
+     to its plain version on its own inputs.  No ResNet path runs them.
 3. Drive the image-mode serving path at full width: PeraNet/ResNet-18,
    256×256×3 inputs, 512-d embeddings, bf16 compute, seeded random
    weights in the reference layout; a 1000-row bank embedded from
@@ -342,6 +353,11 @@ PATCH_F32_MODEL_TOL = 1e-3  # a one-ulp bf16 flip in the stem carries through th
 #: stem's BatchNorm on the image path (the patch path's is in the stem kernel)
 BN_ACT_SITES_FROM_STEM, BN_ACT_SITES_IMAGE = 16, 17
 BN_ACT_SITES_WIDE_FROM_STEM = 48  # Wide-ResNet-50-2: 16 bottleneck blocks × 3
+#: csrc/vit_pointwise.cu at ViT-g/14's served shape: 32 images of 448² → 1,029
+#: tokens each, width 1,536, SwiGLU hidden 4,096; a forward launches
+#: residual_ln 3 times a block and silu_mul once, over 40 blocks
+VIT_BACKBONE, VIT_ROWS, VIT_WIDTH, VIT_HIDDEN = "dinov2_vitg14_reg", (32, 1029), 1536, 4096
+VIT_RESIDUAL_LN_SITES, VIT_SILU_MUL_SITES = 120, 40
 N_REQUESTS, N_THREADS = 32, 4
 BATCH, BANK_ROWS = 8, 1000
 #: patch mode: 63 train-good images (50 train + 13 val), 841 windows each
@@ -711,29 +727,151 @@ def bits_differ(a, b) -> int:
     return int(((a.view(ints[a.dtype]) != b.view(ints[b.dtype])) & ~both_nan).sum())
 
 
-@contextlib.contextmanager
-def checking_bn_act():
-    """Each call of the bn_act kernel wrapper held against ``bn_act_plain``
-    on its own inputs when it is made, bit for bit (its inputs are not
-    kept: a served batch's activations take GBs) → [(x's shape, elements
-    whose bits differ)]; its ``launches`` count carries over and back."""
-    from ssad_tpu_torch.ops import bn_act
+def outputs_differ(a, b) -> int:
+    """``bits_differ`` summed over a kernel's outputs: one tensor, or a
+    tuple of tensors and Nones (``residual_ln``'s ``(x', n)``)."""
+    if not isinstance(a, tuple):
+        return bits_differ(a, b)
+    if not isinstance(b, tuple) or len(a) != len(b):
+        return 1
+    return sum(0 if u is None and v is None else 1 if u is None or v is None
+               else bits_differ(u, v) for u, v in zip(a, b))
 
-    original, calls = bn_act.bn_act_cuda, []
+
+@contextlib.contextmanager
+def checking(module, name: str, plain):
+    """Each call of the kernel wrapper ``module.name`` held against
+    ``plain`` on its own inputs when it is made, bit for bit (its inputs
+    are not kept: a served batch's activations take GBs) → [(the first
+    input's shape, elements whose bits differ)]; its ``launches`` count
+    carries over and back."""
+    original, calls = getattr(module, name), []
 
     def wrapper(*args, **kw):
         out = original(*args, **kw)
         key = "x".join(str(d) for d in args[0].shape)
-        calls.append((key, bits_differ(out, bn_act.bn_act_plain(*args, **kw))))
+        calls.append((key, outputs_differ(out, plain(*args, **kw))))
         return out
 
     wrapper.launches = original.launches  # the wrapper's body counts on this name
-    bn_act.bn_act_cuda = wrapper
+    setattr(module, name, wrapper)
     try:
         yield calls
     finally:
         original.launches = wrapper.launches
-        bn_act.bn_act_cuda = original
+        setattr(module, name, original)
+
+
+def vit_pointwise_cases(device, dtype, seed: int = 3) -> dict:
+    """csrc/vit_pointwise.cu's four forms at ViT-g's served shape in
+    ``dtype``, on seeded inputs (a row scale and offset each, so the
+    LayerNorm's statistics vary by row): {form: (kernel call, plain call,
+    bytes moved: each input read once, each output written once)}."""
+    import torch
+
+    from ssad_tpu_torch.models.vit import LN_EPS
+    from ssad_tpu_torch.ops import vit_pointwise as vp
+
+    gen = torch.Generator(device=device).manual_seed(seed)
+    rows, c, hidden = VIT_ROWS, VIT_WIDTH, VIT_HIDDEN
+    x = (torch.randn(rows + (c,), generator=gen, device=device)
+         * (0.5 + 3 * torch.rand(rows + (1,), generator=gen, device=device))
+         + 2 * torch.randn(rows + (1,), generator=gen, device=device))
+    y = torch.randn(rows + (c,), generator=gen, device=device).to(dtype)
+    gamma = 1.0 + 0.2 * torch.randn(c, generator=gen, device=device)
+    ln = (0.8 + 0.4 * torch.rand(c, generator=gen, device=device),
+          0.1 * torch.randn(c, generator=gen, device=device), LN_EPS)
+    h = (3 * torch.randn(rows + (2 * hidden,), generator=gen, device=device)).to(dtype)
+    elems, size = x.numel(), y.element_size()
+    return {
+        "residual_ln.ln": (lambda: vp.residual_ln_cuda(x, ln=ln, dtype=dtype),
+                           lambda: vp.residual_ln_plain(x, ln=ln, dtype=dtype),
+                           elems * (4 + size)),
+        "residual_ln.both": (lambda: vp.residual_ln_cuda(x, y, gamma, ln, dtype),
+                             lambda: vp.residual_ln_plain(x, y, gamma, ln, dtype),
+                             elems * (4 + size + 4 + size)),
+        "residual_ln.residual": (lambda: vp.residual_ln_cuda(x, y, gamma),
+                                 lambda: vp.residual_ln_plain(x, y, gamma),
+                                 elems * (4 + size + 4)),
+        "silu_mul": (lambda: vp.silu_mul_cuda(h), lambda: vp.silu_mul_plain(h),
+                     h.numel() // 2 * 3 * size),
+    }
+
+
+def check_vit_pointwise_kernel(device) -> dict:
+    """The transformer trunk's pointwise kernels vs their plain versions,
+    bit for bit, at ViT-g's served shape in bf16 and f32 (each form of
+    residual_ln, and silu_mul); in bf16, the served dtype, kernel and plain
+    ms and the kernel's device µs beside the bytes bound."""
+    import torch
+
+    records = {}
+    with torch.inference_mode():
+        for dtype in (torch.bfloat16, torch.float32):
+            cases = vit_pointwise_cases(device, dtype)
+            for name, (kernel, plain, nbytes) in cases.items():
+                differ = outputs_differ(kernel(), plain())
+                if differ:
+                    fail(f"vit_pointwise {name} kernel vs plain at {VIT_ROWS} x {VIT_WIDTH} "
+                         f"{dtype}: {differ} elements' bits differ")
+                if dtype != torch.bfloat16:
+                    continue
+                match = "silu_mul_kernel" if name == "silu_mul" else "residual_ln_kernel"
+                rec = {"rows": list(VIT_ROWS), "width": VIT_WIDTH, "hidden": VIT_HIDDEN,
+                       "dtype": "bfloat16", "ms": cuda_ms(kernel), "plain_ms": cuda_ms(plain),
+                       "device_us": device_us(kernel, match, 20), "bytes": nbytes,
+                       "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3}
+                rec["share_of_bound"] = rec["bound_ms"] / rec["ms"]
+                records[name] = rec
+                print(f"vit_pointwise {name}: {json.dumps(rec)}", flush=True)
+            del cases
+            torch.cuda.empty_cache()
+    return records
+
+
+def drive_vit_trunk(device, seed: int = 7) -> dict:
+    """One bf16 forward of the ViT-g/14 trunk (PeraNet, seeded weights, two
+    448² images) with the launch counts zeroed just before: 120
+    residual_ln and 40 silu_mul launches, each call held against its plain
+    version on its own inputs, bit for bit."""
+    import torch
+
+    from port_bench.core import seeded
+    from port_bench.reference import vit as ref_vit
+    from port_bench.reference.peranet import normalize
+    from ssad_tpu_torch.config import ModelConfig
+    from ssad_tpu_torch.models.peranet import build_model
+    from ssad_tpu_torch.ops import vit_pointwise as vp
+
+    state = seeded.fill_state(ref_vit.state_shapes(VIT_BACKBONE), seed, device)
+    with torch.device(device):
+        model = build_model(ModelConfig(backbone=VIT_BACKBONE, compute_dtype="bfloat16"))
+    model.load_state_dict(state, strict=True)
+    model.eval()
+    del state
+    x = normalize(seeded.images(2, 448, seed, "requests", device))
+    with torch.inference_mode():
+        vp.residual_ln_cuda.launches = vp.silu_mul_cuda.launches = 0
+        with checking(vp, "residual_ln_cuda", vp.residual_ln_plain) as res, \
+                checking(vp, "silu_mul_cuda", vp.silu_mul_plain) as silu:
+            out = model(x)
+    launches = {"residual_ln": vp.residual_ln_cuda.launches, "silu_mul": vp.silu_mul_cuda.launches}
+    rec = {"launches": launches, "calls_vs_plain": {
+        "residual_ln": max(d for _, d in res), "silu_mul": max(d for _, d in silu)},
+        "logits_finite": bool(torch.isfinite(out["classifier"]).all())}
+    print(f"vit trunk: {json.dumps(rec)}", flush=True)
+    if launches != {"residual_ln": VIT_RESIDUAL_LN_SITES, "silu_mul": VIT_SILU_MUL_SITES}:
+        fail(f"vit trunk launches {launches}, not {VIT_RESIDUAL_LN_SITES} residual_ln and "
+             f"{VIT_SILU_MUL_SITES} silu_mul")
+    if (len(res), len(silu)) != (VIT_RESIDUAL_LN_SITES, VIT_SILU_MUL_SITES):
+        fail(f"vit trunk: {len(res)} residual_ln and {len(silu)} silu_mul calls checked")
+    if any(rec["calls_vs_plain"].values()):
+        fail(f"vit trunk: a kernel call's bits differ from its plain version: {rec}")
+    if not rec["logits_finite"]:
+        fail("vit trunk: the classifier's output is not finite")
+    del model, x, out
+    torch.cuda.empty_cache()
+    return rec
 
 
 def tiled_bound(n: int, m: int, d: int):
@@ -2621,13 +2759,13 @@ def drive_scorers(device, work: Path) -> dict:
 @contextlib.contextmanager
 def recording_every_kernel():
     """Every call of the four kernel wrappers, recorded: {kernel name:
-    calls} (``recording``; bn_act's checked as it is made,
-    ``checking_bn_act``)."""
-    from ssad_tpu_torch.ops import knn, stem_pool
+    calls} (``recording``; bn_act's checked as it is made, ``checking``)."""
+    from ssad_tpu_torch.ops import bn_act, knn, stem_pool
 
     with recording(knn, "knn_cosine_scores_cuda") as resident, \
             recording(knn, "knn_cosine_scores_tiled_cuda") as tiled, \
-            recording(stem_pool, "stem_pool_cuda") as stem, checking_bn_act() as bn:
+            recording(stem_pool, "stem_pool_cuda") as stem, \
+            checking(bn_act, "bn_act_cuda", bn_act.bn_act_plain) as bn:
         yield {"knn_cosine_scores": resident, "knn_cosine_scores_tiled": tiled,
                "stem_pool": stem, "bn_act": bn}
 
@@ -3756,7 +3894,7 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
 
     t0 = time.perf_counter()
-    libs = _cuda.build(["knn", "knn_tiled", "stem_pool", "bn_act"])
+    libs = _cuda.build(["knn", "knn_tiled", "stem_pool", "bn_act", "vit_pointwise"])
     print(f"build: {sorted(libs)} in {time.perf_counter() - t0:.2f} s", flush=True)
     for name, log in _cuda.build_logs.items():
         for line in log.splitlines():
@@ -3776,6 +3914,8 @@ def main() -> int:
     stem_records = check_stem_kernel(device)
     tiled_records = check_tiled_kernel(device)
     bn_records = check_bn_act_kernel(device)
+    vit_records = check_vit_pointwise_kernel(device)
+    vit_trunk = drive_vit_trunk(device)
     work = Path(tempfile.mkdtemp(prefix=".chip_smoke_", dir=ROOT))
     try:
         launches, image_bn_act_launches = drive_serving_path(device, work)
@@ -3891,6 +4031,14 @@ def main() -> int:
                 or rec.get("multi15_path_launches", 1) < 1
                 or (name != "knn_cosine_scores" and rec["localize_path_launches"] < 1)):
             fail(f"{rec['name']} was not launched on its path")
+    # no ResNet path runs it: its launches are the ViT-g trunk's forward's
+    kernels.append({
+        "name": "vit_pointwise", "route": "cuda",
+        "source": "ssad_tpu_torch/csrc/vit_pointwise.cu",
+        "replaces": "none: XLA fused the ViT block's pointwise chains on the TPU",
+        "launches": vit_trunk["launches"], "path": "image (ViT-g/14 trunk)",
+        "tolerance": "bit-equal", "calls_vs_plain": vit_trunk["calls_vs_plain"],
+        "sites": vit_records})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(f"total: {time.perf_counter() - t_start:.1f} s", flush=True)
     print(card_line(), flush=True)

@@ -57,10 +57,15 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "launch.cuh"
+
 namespace {
 
+using ssad::aligned16;
+using ssad::kMaxDevices;
+using ssad::resident_blocks;
+
 constexpr int kThreads = 256;
-constexpr int kMaxDevices = 64;
 
 enum Residual { kNone = 0, kIdentity = 1, kNormed = 2 };
 
@@ -212,37 +217,6 @@ int gcd(int a, int b) {
   return a;
 }
 
-int sm_count(int device, int* sms) {
-  static int cached[kMaxDevices] = {};
-  if (device >= 0 && device < kMaxDevices && cached[device] > 0) {
-    *sms = cached[device];
-    return 0;
-  }
-  const cudaError_t e = cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, device);
-  if (e == cudaSuccess && device >= 0 && device < kMaxDevices) cached[device] = *sms;
-  return (int)e;
-}
-
-// resident blocks of `kernel` on the whole card; `cached` holds its blocks
-// per SM by device (one array per kernel: the callers' statics)
-template <typename K>
-int resident_blocks(K kernel, int device, long long* blocks, int (&cached)[kMaxDevices]) {
-  int per_sm = device >= 0 && device < kMaxDevices ? cached[device] : 0;
-  if (per_sm == 0) {
-    const cudaError_t e =
-        cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads, 0);
-    if (e != cudaSuccess) return (int)e;
-    if (per_sm < 1) return (int)cudaErrorLaunchOutOfResources;
-    if (device >= 0 && device < kMaxDevices) cached[device] = per_sm;
-  }
-  int sms = 0;
-  const int e = sm_count(device, &sms);
-  *blocks = (long long)per_sm * sms;
-  return e;
-}
-
-bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; }
-
 template <typename T, int RES>
 int launch(const Args& g, int device, cudaStream_t stream) {
   constexpr int kN = Vec<T>::kN;
@@ -255,7 +229,8 @@ int launch(const Args& g, int device, cudaStream_t stream) {
     const int groups = g.channels / kN;
     const int step = groups / gcd(groups, kThreads);  // blocks whose threads span whole rows
     static int cached_rows[kMaxDevices] = {};
-    int e = resident_blocks(bn_act_channels_last_kernel<T, RES>, device, &blocks, cached_rows);
+    int e = resident_blocks(bn_act_channels_last_kernel<T, RES>, kThreads, device, &blocks,
+                            cached_rows);
     if (e) return e;
     long long grid = needed < blocks ? needed : blocks;
     grid = (grid + step - 1) / step * step;
@@ -265,7 +240,7 @@ int launch(const Args& g, int device, cudaStream_t stream) {
     return (int)cudaGetLastError();
   }
   static int cached_planar[kMaxDevices] = {};
-  int e = resident_blocks(bn_act_planar_kernel<T, RES>, device, &blocks, cached_planar);
+  int e = resident_blocks(bn_act_planar_kernel<T, RES>, kThreads, device, &blocks, cached_planar);
   if (e) return e;
   bn_act_planar_kernel<T, RES><<<(unsigned)(needed < blocks ? needed : blocks), kThreads, 0,
                                  stream>>>(
@@ -281,18 +256,6 @@ int launch_dtype(const Args& g, int device, cudaStream_t stream) {
   return launch<T, kNormed>(g, device, stream);
 }
 
-// runs fn on `device`, restoring the caller's current device afterwards
-template <typename Fn>
-int on_device(int device, Fn fn) {
-  int cur = -1;
-  cudaError_t e = cudaGetDevice(&cur);
-  if (e != cudaSuccess) return (int)e;
-  if (cur != device && (e = cudaSetDevice(device)) != cudaSuccess) return (int)e;
-  const int status = fn();
-  if (cur != device) cudaSetDevice(cur);
-  return status;
-}
-
 }  // namespace
 
 // dtype: 0 bfloat16, 1 float32
@@ -305,7 +268,7 @@ extern "C" int ssad_bn_act(const void* x, const void* residual, void* out, const
     return (int)cudaErrorInvalidValue;
   const Args g{x, residual, out, {mean, mul, bias}, {rmean, rmul, rbias},
                n, channels, inner, relu != 0};
-  return on_device(device, [&]() {
+  return ssad::on_device(device, [&]() {
     const cudaStream_t s = static_cast<cudaStream_t>(stream);
     return dtype == 0 ? launch_dtype<__nv_bfloat16>(g, device, s) : launch_dtype<float>(g, device, s);
   });

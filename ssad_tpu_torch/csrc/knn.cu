@@ -61,6 +61,8 @@
 #include <math_constants.h>
 #include <stdint.h>
 
+#include "launch.cuh"
+
 namespace cg = cooperative_groups;
 
 namespace {
@@ -420,18 +422,6 @@ int occupancy(int cluster, int* active_clusters) {
   return (int)cudaOccupancyMaxActiveClusters(active_clusters, knn_cluster_kernel<BQ>, &cfg);
 }
 
-// runs fn on `device`, restoring the caller's current device afterwards
-template <typename Fn>
-int on_device(int device, Fn fn) {
-  int cur = -1;
-  cudaError_t e = cudaGetDevice(&cur);
-  if (e != cudaSuccess) return (int)e;
-  if (cur != device && (e = cudaSetDevice(device)) != cudaSuccess) return (int)e;
-  const int status = fn();
-  if (cur != device) cudaSetDevice(cur);
-  return status;
-}
-
 }  // namespace
 
 extern "C" int ssad_knn_cosine_scores(const float* queries, const float* bank, float* out, int n,
@@ -442,7 +432,7 @@ extern "C" int ssad_knn_cosine_scores(const float* queries, const float* bank, f
       (reinterpret_cast<uintptr_t>(queries) | reinterpret_cast<uintptr_t>(bank)) % 16 != 0)
     return (int)cudaErrorInvalidValue;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return on_device(device, [&]() {
+  return ssad::on_device(device, [&]() {
     switch (bq) {
       case 8: return launch<8>(queries, bank, out, n, m, d, k, cluster, rows_per_cta, s);
       case 16: return launch<16>(queries, bank, out, n, m, d, k, cluster, rows_per_cta, s);
@@ -453,7 +443,7 @@ extern "C" int ssad_knn_cosine_scores(const float* queries, const float* bank, f
 }
 
 extern "C" int ssad_knn_occupancy(int bq, int cluster, int device, int* active_clusters) {
-  return on_device(device, [&]() {
+  return ssad::on_device(device, [&]() {
     switch (bq) {
       case 8: return occupancy<8>(cluster, active_clusters);
       case 16: return occupancy<16>(cluster, active_clusters);

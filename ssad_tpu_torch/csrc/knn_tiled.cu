@@ -76,6 +76,8 @@
 #include <math_constants.h>
 #include <stdint.h>
 
+#include "launch.cuh"
+
 namespace {
 
 constexpr int kBQ = 128;                          // queries per CTA: two warpgroups of 64
@@ -535,18 +537,6 @@ int launch_k(const Operands& o, int k, cudaStream_t s) {
   }
 }
 
-// runs fn on `device`, restoring the caller's current device afterwards
-template <typename Fn>
-int on_device(int device, Fn fn) {
-  int cur = -1;
-  cudaError_t e = cudaGetDevice(&cur);
-  if (e != cudaSuccess) return (int)e;
-  if (cur != device && (e = cudaSetDevice(device)) != cudaSuccess) return (int)e;
-  const int status = fn();
-  if (cur != device) cudaSetDevice(cur);
-  return status;
-}
-
 }  // namespace
 
 extern "C" int ssad_knn_tiled_scores(const void* qh, const void* ql, const void* bh,
@@ -562,12 +552,12 @@ extern "C" int ssad_knn_tiled_scores(const void* qh, const void* ql, const void*
     return (int)cudaErrorInvalidValue;
   const Operands o = {qh, ql, bh, bl, partial, out, n, m, dp, tiles_per_split, splits};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return on_device(device, [&]() { return launch_k(o, k, s); });
+  return ssad::on_device(device, [&]() { return launch_k(o, k, s); });
 }
 
 // CTAs of the partial kernel resident per SM (the occupancy calculator)
 extern "C" int ssad_knn_tiled_occupancy(int device, int* blocks) {
-  return on_device(device, [&]() {
+  return ssad::on_device(device, [&]() {
     static bool configured[64] = {};
     const cudaError_t e = configure(knn_tiled_partial_kernel<3>, configured);
     if (e != cudaSuccess) return (int)e;

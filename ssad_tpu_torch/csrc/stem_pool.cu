@@ -63,6 +63,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "launch.cuh"
+
 namespace {
 
 constexpr int kSide = 32;                 // patch side
@@ -297,18 +299,6 @@ cudaError_t launch_shape(int device, int* blocks_per_sm, int* sms) {
   return e;
 }
 
-// runs fn on `device`, restoring the caller's current device afterwards
-template <typename Fn>
-int on_device(int device, Fn fn) {
-  int cur = -1;
-  cudaError_t e = cudaGetDevice(&cur);
-  if (e != cudaSuccess) return (int)e;
-  if (cur != device && (e = cudaSetDevice(device)) != cudaSuccess) return (int)e;
-  const int status = fn();
-  if (cur != device) cudaSetDevice(cur);
-  return status;
-}
-
 }  // namespace
 
 extern "C" int ssad_stem_pool(const void* x, const void* wt, const float* scale, const float* bias,
@@ -316,7 +306,7 @@ extern "C" int ssad_stem_pool(const void* x, const void* wt, const float* scale,
   if (n <= 0 || (reinterpret_cast<uintptr_t>(x) | reinterpret_cast<uintptr_t>(wt)) % 4 != 0 ||
       reinterpret_cast<uintptr_t>(out) % 16 != 0)
     return (int)cudaErrorInvalidValue;
-  return on_device(device, [&]() {
+  return ssad::on_device(device, [&]() {
     int blocks_per_sm = 0, sms = 0;
     cudaError_t e = launch_shape(device, &blocks_per_sm, &sms);
     if (e != cudaSuccess) return (int)e;
@@ -329,7 +319,7 @@ extern "C" int ssad_stem_pool(const void* x, const void* wt, const float* scale,
 }
 
 extern "C" int ssad_stem_pool_occupancy(int device, int* blocks_per_sm) {
-  return on_device(device, [&]() {
+  return ssad::on_device(device, [&]() {
     int sms = 0;
     return (int)launch_shape(device, blocks_per_sm, &sms);
   });

@@ -46,6 +46,17 @@ outputs, LayerScale's product and each residual sum, the taps and
 ``pooled``.  Every product sums in f32.  With ``float32`` nothing is
 rounded.
 
+A block's pointwise chains run fused (``ops/vit_pointwise.py``, the CUDA
+kernels of csrc/vit_pointwise.cu on the card, the plain operations on the
+CPU): ``residual_ln`` does ``norm1`` and its rounding in one pass, then
+LayerScale's product, the residual add, ``norm2`` and its rounding in
+another, then the second LayerScale and residual add in a third;
+``silu_mul`` does SiLU, its rounding and the product with ``b`` in one
+pass over ``w12``'s output.  The operations, their order and their
+roundings are those listed above, the LayerNorm's statistics included
+(summed as PyTorch's CUDA LayerNorm sums them), so the trunk's bits are
+those of the operations run one by one.
+
 Attention is ``F.scaled_dot_product_attention`` with one backend pinned
 on the card, so that one kernel name stands for it on the device trace:
 FlashAttention-2 (``SDPBackend.FLASH_ATTENTION``, whose forward kernel's
@@ -68,6 +79,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ssad_tpu_torch.ops.vit_pointwise import residual_ln, silu_mul
 from ssad_tpu_torch.utils.profiling import span
 
 LN_EPS = 1e-6
@@ -97,15 +109,18 @@ def _linear(x: torch.Tensor, layer: nn.Linear) -> torch.Tensor:
     return F.linear(x, layer.weight.to(x.dtype), layer.bias.to(x.dtype))
 
 
+def _ln_args(norm: nn.LayerNorm):
+    """``ops.vit_pointwise``'s (weight, bias, eps) of a LayerNorm."""
+    return norm.weight, norm.bias, norm.eps
+
+
 class LayerScale(nn.Module):
-    """``gamma ⊙ x`` in f32, one learned scale a channel."""
+    """One learned f32 scale a channel, ``gamma``: ``Block`` applies it to
+    its branch's output in ``ops.vit_pointwise.residual_ln``."""
 
     def __init__(self, dim: int, init_values: float = 1.0):
         super().__init__()
         self.gamma = nn.Parameter(torch.full((dim,), float(init_values)))
-
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.gamma * x  # a bf16 x is promoted to f32 by the f32 gamma
 
 
 class Attention(nn.Module):
@@ -130,8 +145,7 @@ class SwiGLU(nn.Module):
         self.w3 = nn.Linear(hidden, dim, bias=True)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        a, b = _linear(x, self.w12).chunk(2, dim=-1)
-        return _linear(F.silu(a) * b, self.w3)
+        return _linear(silu_mul(_linear(x, self.w12)), self.w3)
 
 
 class Block(nn.Module):
@@ -150,8 +164,10 @@ class Block(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dt = self.compute_dtype
-        x = x + self.ls1(self.attn(self.norm1(x).to(dt)))
-        return x + self.ls2(self.mlp(self.norm2(x).to(dt)))
+        _, n = residual_ln(x, ln=_ln_args(self.norm1), dtype=dt)
+        x, n = residual_ln(x, self.attn(n), self.ls1.gamma, _ln_args(self.norm2), dt)
+        x, _ = residual_ln(x, self.mlp(n), self.ls2.gamma)
+        return x
 
 
 class VisionTransformer(nn.Module):

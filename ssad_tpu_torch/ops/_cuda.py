@@ -3,8 +3,9 @@
 Each ``csrc/<name>.cu`` exposes a plain C interface.  It is compiled with
 ``nvcc`` for Hopper (``sm_90a``) into a shared library under
 ``ssad_tpu_torch/_build/`` (git-ignored) at first use, and loaded with
-``ctypes``.  The library's file name carries a hash of its source and the
-compiler flags, so an edited source is rebuilt and never served stale.
+``ctypes``.  The library's file name carries a hash of its source, of the
+headers it includes from ``csrc/`` and of the compiler flags, so an edited
+source or header is rebuilt and never served stale.
 Nothing here runs at import time: this module is imported on hosts that
 have neither a card nor ``nvcc``.
 """
@@ -54,9 +55,11 @@ def nvcc_path() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = CSRC_DIR / f"{name}.cu"
+    """The library's path, named by a hash of its source, of every header
+    beside it (csrc/*.cuh, which the sources include) and of the flags."""
+    sources = [CSRC_DIR / f"{name}.cu", *sorted(CSRC_DIR.glob("*.cuh"))]
     digest = hashlib.sha256(
-        src.read_bytes() + " ".join(NVCC_FLAGS).encode()
+        b"".join(p.read_bytes() for p in sources) + " ".join(NVCC_FLAGS).encode()
     ).hexdigest()[:16]
     return BUILD_DIR / f"lib{name}-{digest}.so"
 
